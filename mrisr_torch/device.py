@@ -1,0 +1,23 @@
+"""Device selection shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """Return ``torch.device(device)`` (CUDA with its index); raise if CUDA is absent.
+
+    Entry points default to ``"cuda"``.  Nothing moves work to the CPU behind
+    the caller's back: the CPU is used only when the caller passes ``"cpu"``.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,244 @@
+"""The PyTorch port's diffusion math and ops against the JAX reference, on the CPU.
+
+Inputs come from numpy with a fixed seed and go through both packages.  The
+two kernels' plain versions (the path a CPU tensor takes) are held to the
+JAX Pallas kernels run in interpret mode.  Tolerances are float32 rounding
+of differently ordered sums unless stated otherwise.
+"""
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mrisr_tpu.diffusion import ddim as j_ddim
+from mrisr_tpu.diffusion import ddpm as j_ddpm
+from mrisr_tpu.diffusion import schedules as j_sched
+from mrisr_tpu.ops import attention as j_attn
+from mrisr_tpu.ops.flash_attention import _flash_fwd_impl
+from mrisr_tpu.ops.fourier import gaussian_highpass_split as j_split
+from mrisr_tpu.ops.groupnorm import _gn_silu_forward, group_norm_silu_reference
+from mrisr_tpu.ops.wavelets import haar_dwt_highpass_sum as j_dwt
+from mrisr_torch.diffusion import ddim as t_ddim
+from mrisr_torch.diffusion import ddpm as t_ddpm
+from mrisr_torch.diffusion import schedules as t_sched
+from mrisr_torch.ops import attention as t_attn
+from mrisr_torch.ops import flash_attention as t_flash
+from mrisr_torch.ops import groupnorm as t_gn
+from mrisr_torch.ops.fourier import gaussian_highpass_split as t_split
+from mrisr_torch.ops.wavelets import haar_dwt_highpass_sum as t_dwt
+
+REPO = Path(__file__).resolve().parent.parent
+SCHEDULE_FIELDS = (
+    "betas", "alphas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+    "sqrt_one_minus_alphas_cumprod", "posterior_variance", "posterior_log_variance_clipped",
+    "posterior_mean_coef1", "posterior_mean_coef2",
+)
+
+
+def _np(t):
+    return t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        ("linear", 1000, 1e-6, 1e-2, False),
+        ("scaled_linear", 1000, 0.00085, 0.012, True),
+        ("cosine", 50, 1e-4, 0.02, False),
+    ],
+)
+def test_schedule_tables_match(args):
+    kind, T, b0, b1, zsnr = args
+    sj = j_sched.make_schedule(kind, T, b0, b1, zero_terminal_snr=zsnr)
+    st = t_sched.make_schedule(kind, T, b0, b1, zero_terminal_snr=zsnr)
+    assert st.num_timesteps == sj.num_timesteps == T
+    for name in SCHEDULE_FIELDS:
+        # Same float64 numpy math cast to float32 on both sides: bit-equal.
+        np.testing.assert_array_equal(_np(getattr(st, name)), _np(getattr(sj, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("spacing", ["trailing", "leading", "linspace"])
+def test_spaced_timesteps_match(spacing):
+    for n in (4, 50, 1000):
+        np.testing.assert_array_equal(
+            t_sched.spaced_timesteps(1000, n, spacing), j_sched.spaced_timesteps(1000, n, spacing)
+        )
+
+
+@pytest.mark.parametrize("clip", [True, False])
+def test_ddim_step_and_ddpm_math_match(clip):
+    rng = np.random.default_rng(1)
+    sj, st = j_sched.resdiff_schedule(1000), t_sched.resdiff_schedule(1000)
+    x = rng.standard_normal((3, 1, 8, 8)).astype(np.float32)
+    eps = rng.standard_normal(x.shape).astype(np.float32)
+    t = np.array([999, 500, 19])
+    tp = np.array([979, 480, -1])
+    want = j_ddim.ddim_step(sj, jnp.asarray(x), jnp.asarray(t), jnp.asarray(tp), jnp.asarray(eps), clip_x0=clip)
+    got = t_ddim.ddim_step(st, torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(tp),
+                           torch.from_numpy(eps), clip_x0=clip)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-6, rtol=1e-5)
+    for name in ("q_sample", "predict_x0_from_eps", "predict_eps_from_x0"):
+        a = getattr(j_ddpm, name)(sj, jnp.asarray(x), jnp.asarray(t), jnp.asarray(eps))
+        b = getattr(t_ddpm, name)(st, torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(eps))
+        np.testing.assert_allclose(_np(b), _np(a), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_ddim_step_keeps_carry_dtype_and_needs_generator_for_eta():
+    st = t_sched.resdiff_schedule(1000)
+    x = torch.randn(2, 1, 4, 4, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    t, tp = torch.tensor([999, 999]), torch.tensor([979, 979])
+    assert t_ddim.ddim_step(st, x, t, tp, x).dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        t_ddim.ddim_step(st, x, t, tp, x, eta=0.5)
+    a = t_ddim.ddim_step(st, x, t, tp, x, torch.Generator().manual_seed(3), eta=0.5)
+    b = t_ddim.ddim_step(st, x, t, tp, x, torch.Generator().manual_seed(3), eta=0.5)
+    assert torch.equal(a, b) and not torch.equal(a, t_ddim.ddim_step(st, x, t, tp, x))
+
+
+def test_fourier_split_and_haar_dwt_match_at_batch_2():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 1, 32, 32)).astype(np.float32)
+    sigma = np.array([[14.0], [20.5]], np.float32)
+    fj, hj = j_split(jnp.asarray(x), jnp.asarray(sigma))
+    ft, ht = t_split(torch.from_numpy(x), torch.from_numpy(sigma))
+    np.testing.assert_allclose(_np(ft), np.asarray(fj), atol=2e-4, rtol=1e-5)
+    np.testing.assert_allclose(_np(ht), np.asarray(hj), atol=2e-5, rtol=1e-5)
+    for a, b in zip(j_dwt(jnp.asarray(x), 3), t_dwt(torch.from_numpy(x), 3)):
+        np.testing.assert_allclose(_np(b), np.asarray(a), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,m,d", [(1024, 1024, 16), (1024, 64, 32)])
+def test_dense_and_chunked_attention_match(n, m, d):
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, s, d)).astype(np.float32) for s in (n, m, m))
+    args_j = tuple(jnp.asarray(a) for a in (q, k, v))
+    args_t = tuple(torch.from_numpy(a) for a in (q, k, v))
+    scale = 1.0 / np.sqrt(d)
+    want = np.asarray(j_attn.dense_attention(*args_j, scale))
+    np.testing.assert_allclose(_np(t_attn.dense_attention(*args_t, scale)), want, atol=2e-6)
+    np.testing.assert_allclose(_np(t_attn.chunked_attention(*args_t, scale)), want, atol=2e-6)
+    np.testing.assert_allclose(
+        _np(t_attn.chunked_attention(*args_t, scale)),
+        np.asarray(j_attn.chunked_attention(*args_j, scale)), atol=2e-6,
+    )
+
+
+def test_cross_attention_dispatch_at_4096_tokens_matches():
+    """n >= 4096 on a CPU tensor takes the chunked path, as in the reference."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((1, 4096, 8)).astype(np.float32) for _ in range(3))
+    want = np.asarray(j_attn.cross_attention_2d(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    before = t_flash.flash_attention_fwd.launches
+    got = t_attn.cross_attention_2d(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(_np(got), want, atol=2e-6)
+    assert t_flash.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize(
+    "n,m,d,bq,bk",
+    [(256, 256, 32, 128, 128), (512, 256, 64, 128, 256), (200, 136, 32, 200, 136), (64, 64, 128, 64, 64)],
+)
+def test_flash_plain_matches_jax_kernel(n, m, d, bq, bk):
+    """B1's plain version (o and lse) against the Pallas kernel in interpret mode.
+
+    (200, 136) is a ragged length: one block spans the whole sequence.
+    """
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((2, s, d)).astype(np.float32) for s in (n, m, m))
+    scale = 1.0 / np.sqrt(d)
+    oj, lj = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, bq, bk, interpret=True)
+    ot, lt = t_flash.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), scale)
+    assert ot.shape == (2, n, d) and lt.shape == (2, n) and lt.dtype == torch.float32
+    np.testing.assert_allclose(_np(ot), np.asarray(oj), atol=2e-5)
+    np.testing.assert_allclose(_np(lt), np.asarray(lj)[:, 0], atol=2e-5)
+
+
+def test_flash_plain_chunks_ragged_queries():
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((1, s, 32)).astype(np.float32) for s in (1300, 700, 700))
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    o1, l1 = t_flash.flash_attention_plain(*args, 0.2, chunk=512)
+    o2, l2 = t_flash.flash_attention_plain(*args, 0.2, chunk=4096)
+    torch.testing.assert_close(o1, o2, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(l1, l2, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(o1, t_attn.dense_attention(*args, 0.2), atol=2e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 8, 8, 16), 4), ((1, 16, 16, 32), 16), ((2, 6, 10, 12), 3)])
+def test_group_norm_silu_plain_matches_jax_kernel(shape, groups):
+    """B3's plain version against the Pallas kernel (interpret mode) and its reference."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(shape).astype(np.float32) * 2.0 + 0.5
+    c = shape[-1]
+    w = (1.0 + 0.2 * rng.standard_normal(c)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), groups, 1e-5)
+    kern = np.asarray(_gn_silu_forward(*args, interpret=True))
+    ref = np.asarray(group_norm_silu_reference(*args))
+    before = t_gn.group_norm_silu.launches
+    got = t_gn.group_norm_silu(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
+                               torch.from_numpy(w), torch.from_numpy(b), groups)
+    got = _np(got.permute(0, 2, 3, 1))
+    np.testing.assert_allclose(got, kern, atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+    assert t_gn.group_norm_silu.launches == before
+
+
+def test_wrappers_reject_bad_input():
+    x = torch.zeros(2, 6, 4, 4)
+    with pytest.raises(ValueError):
+        t_gn.group_norm_silu(x, torch.ones(6), torch.zeros(6), 4)
+    with pytest.raises(ValueError):
+        t_flash.flash_attention_fwd(torch.zeros(1, 8, 32), torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), 1.0)
+    with pytest.raises(TypeError):
+        t_flash.flash_attention_fwd(torch.zeros(1, 8, 32), torch.zeros(1, 8, 32).double(),
+                                    torch.zeros(1, 8, 32), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Hygiene
+# ---------------------------------------------------------------------------
+
+FORBIDDEN = ("jax", "flax", "mrisr_tpu")
+
+
+def _imports(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "mrisr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        bad = _imports(path) & set(FORBIDDEN)
+        assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
+    from mrisr_torch import _build, ops
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+    from mrisr_torch.models.simple_cnn import SimpleCNN
+    from mrisr_torch.pipelines.resdiff import ResDiffPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(image_size=16, inner_channel=8, norm_groups=4)
+    for make in (lambda: ResDiffUNet(**small), SimpleCNN, ops.build_kernels,
+                 lambda: _build.load_library("flash_attn_fwd")):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    unet, cnn = ResDiffUNet(**small, device="cpu"), SimpleCNN(device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        ResDiffPipeline(cnn, unet, t_sched.resdiff_schedule(1000))
+    pipe = ResDiffPipeline(cnn, unet, t_sched.resdiff_schedule(1000), device="cpu")
+    assert next(pipe.unet.parameters()).device.type == "cpu"
