@@ -3,25 +3,36 @@
 
 Run from the repository root: ``python3 chip_smoke.py``.  It builds the
 kernels from the sources in the checkout (``nvcc`` for the CUDA flash
-attention, Triton for GroupNorm+SiLU), so nothing else needs to be built
-first.  It needs one CUDA card; without one, or when any phase fails, it
-exits non-zero and prints no result.  Each phase prints one JSON line:
+attention forward and backward, both sources at once; Triton for
+GroupNorm+SiLU), so nothing else needs to be built first.  It needs one CUDA
+card; without one, or when any phase fails, it exits non-zero and prints no
+result.  Each phase prints JSON lines:
 
 1. ``device``: the card, and its name and power limit from nvidia-smi;
-2. ``build``: seconds to build each kernel, and the ptxas register report;
+2. ``build``: seconds to build the kernels, and the ptxas register report;
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the serving chain's shapes, in bf16 and fp32 (plus ragged shapes), with
-   its time beside its bound, the plain version's time and one PyTorch
-   library call's time (timed only; the port never calls it);
+   the main paths' shapes, in bf16 and fp32 (plus ragged shapes), with its
+   time beside its bound, the plain version's time and one PyTorch library
+   call's time (timed only; the port never calls it); and gradients through
+   the autograd function against the direct backward call;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
    through ``ResDiffPipeline.super_resolve``, in the fast (ca_kv_pool=8) and
    exact (ca_kv_pool=0) profiles, with the kernels' launch counts checked,
    then one more chain of each profile traced with ``torch.profiler``
    (``profile``: the device's busy time, idle share and largest kernels);
 5. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
-   against the plain path on the CPU.
+   against the plain path on the CPU;
+6. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
+   EMA 0.999) through ``make_resdiff_train_step``: 3 in fp32, 3 with the bf16
+   policy, 1 with bf16 and remat, each with its launch counts, loss,
+   parameter and EMA movement, ms and peak memory; then one traced bf16 step
+   (``train_profile``);
+7. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
+   dropout 0, kernels on) against the CPU plain path, per parameter.
 
 Then the kernels summary line, the nvidia-smi line, and last the result line.
+``--phases a,b`` runs only the named phases (device and build always run);
+``--log FILE`` also writes every JSON line to FILE.
 """
 from __future__ import annotations
 
@@ -61,14 +72,39 @@ GN_RAGGED = [("ragged", (3, 24, 17, 19), 4), ("ragged", (1, 6, 5, 7), 3), ("ragg
 # summation order.
 FLASH_TOL = {"bfloat16": dict(o_atol_rms=5e-2, o_rtol=2e-2, o_rms_rel=1e-2, lse_atol=1e-2),
              "float32": dict(o_atol_rms=1e-3, o_rtol=1e-4, o_rms_rel=1e-4, lse_atol=1e-4)}
+# The backward kernels, each of dq, dk, dv held like O above.  Both sides
+# recompute P from the same lse (the forward kernel's), so the forward's bf16
+# denominator is shared and not part of the error.  bf16: the kernels round P
+# and dS to bf16 for the tensor cores (2^-9 relative per term, random over the
+# summed keys or queries) and both sides round the result to bf16; fp32:
+# exp2f's 2-ulp error and a different summation order.
+FLASH_BWD_TOL = {"bfloat16": dict(atol_rms=5e-2, rtol=2e-2, rms_rel=1e-2),
+                 "float32": dict(atol_rms=1e-3, rtol=1e-4, rms_rel=1e-4)}
 # bf16: one output ulp (2^-8 relative) either way; fp32: E[x^2]-mean^2 vs two-pass variance.
 GN_TOL = {"bfloat16": dict(atol=3e-2, rtol=1e-2), "float32": dict(atol=1e-4, rtol=1e-4)}
 # Full forward, fp32 with TF32 off: the North-star forward bar.
 FORWARD_TOL = dict(atol=2e-4, rtol=1e-3)
+# Gradients of one fp32 step, card (kernels) against CPU (plain), per parameter
+# leaf: ||g_gpu - g_cpu|| <= GRAD_TOL * ||g_cpu||.  Both are fp32 sums in
+# different orders through ~100 layers.
+GRAD_TOL = 1e-3
+GRAD_SIZE = 256
+TRAIN_LR, TRAIN_EMA = 1e-5, 0.999
+# Launches per training step at 256^2: two CA sites with >= 4096 tokens, 29
+# ConvBlock heads; with remat the forward runs twice.
+TRAIN_LAUNCHES = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
+                  "group_norm_silu": 29}
+
+
+LOG = None  # a file that also gets every JSON line (--log), for runs whose output is cut
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG is not None:
+        LOG.write(line + "\n")
+        LOG.flush()
 
 
 def cuda_ms(torch, fn, min_total_ms=200.0, max_iters=50):
@@ -118,10 +154,12 @@ def phase_build(torch):
     t1 = time.perf_counter()
     groupnorm.build()
     t2 = time.perf_counter()
-    log = (_build.build_dir() / "flash_attn_fwd.log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "flash_attn_fwd_nvcc_s": t1 - t0, "group_norm_silu_triton_s": t2 - t1,
-          "triton": triton.__version__, "ptxas": ptxas})
+    ptxas = {name: _build.ptxas_report(name) for name in flash_attention.LIBRARIES}
+    spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
+              for name, lines in ptxas.items()}
+    emit({"phase": "build", "flash_attn_nvcc_s": t1 - t0, "sources": list(flash_attention.LIBRARIES),
+          "group_norm_silu_triton_s": t2 - t1, "triton": triton.__version__,
+          "kernels_with_spills": spills, "ptxas": ptxas})
 
 
 def check_flash(torch, F, dtype, case, b, n, m, d, timed):
@@ -166,6 +204,85 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
     return rec
 
 
+def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
+    """dQ and dK/dV through ``flash_attention_bwd`` against ``flash_attention_bwd_plain``."""
+    from mrisr_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(b * 11 + n + m + d)
+    q, k, v, do = (torch.randn((b, s, d), generator=gen, device="cuda").to(dtype) for s in (n, m, m, n))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    tol = FLASH_BWD_TOL[name]
+    errs, ok = {}, True
+    for key, g, w in zip(("dq", "dk", "dv"), got, want):
+        ref = w.float()
+        rms_ref = float(ref.square().mean().sqrt())
+        err = (g.float() - ref).abs()
+        limit = tol["atol_rms"] * rms_ref + tol["rtol"] * ref.abs()
+        errs[key] = {"max_abs_err": float(err.max()), "err_over_limit": float((err / limit).max()),
+                     "ref_rms": rms_ref, "rms_err_rel": float(err.square().mean().sqrt()) / rms_ref}
+        ok = (ok and bool(torch.isfinite(g).all()) and errs[key]["err_over_limit"] <= 1.0
+              and errs[key]["rms_err_rel"] <= tol["rms_rel"])
+    base = {"phase": "kernel", "case": case, "dtype": name, "shape": [b, n, m, d], "tolerance": tol, "ok": ok}
+    recs = {"flash_attention_bwd_dq": {**base, "kernel": "flash_attention_bwd_dq", "errors": {"dq": errs["dq"]},
+                                       "max_abs_err": errs["dq"]["max_abs_err"]},
+            "flash_attention_bwd_dkv": {**base, "kernel": "flash_attention_bwd_dkv",
+                                        "errors": {"dk": errs["dk"], "dv": errs["dv"]},
+                                        "max_abs_err": max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])}}
+    if timed:
+        size = q.element_size()
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq_rec, dkv_rec = recs["flash_attention_bwd_dq"], recs["flash_attention_bwd_dkv"]
+        # Each input read once, each output written once; three products for dQ, four for dK/dV.
+        dq_rec["bound_ms"], dq_rec["bound_by"] = bound(
+            (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, peak)
+        dkv_rec["bound_ms"], dkv_rec["bound_by"] = bound(
+            (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, peak)
+        dq_rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale))
+        dkv_rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+        pair_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale))
+        # The plain version and the library call compute dq, dk and dv in one
+        # pass: their times are those of the whole backward, on both records.
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale), max_iters=5)
+        q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        library_ms = cuda_ms(
+            torch, lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None], retain_graph=True), max_iters=10)
+        for rec in (dq_rec, dkv_rec):
+            rec.update(exp_floor_ms=b * n * m / PEAK_EXPS * 1e3, pair_ms=pair_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, plain_and_library_cover="dq, dk and dv together")
+    for rec in recs.values():
+        emit(rec)
+    if not ok:
+        raise AssertionError(f"flash attention backward disagrees with its plain version: {recs}")
+    return recs
+
+
+def check_flash_autograd(torch):
+    """Gradients through the ``flash_attention`` autograd function equal the direct backward call."""
+    from mrisr_torch.ops import flash_attention as fa
+
+    _, b, n, m, d = FLASH_CASES[2]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16) for s in (n, m, m, n))
+    scale = 1.0 / math.sqrt(d)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, scale)
+    through = torch.autograd.grad(out, leaves, do)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    direct = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    ok = torch.equal(out, o) and all(torch.equal(a, b_) for a, b_ in zip(through, direct))
+    emit({"phase": "kernel", "kernel": "flash_attention", "case": "autograd_equals_direct_backward",
+          "shape": [b, n, m, d], "dtype": "bfloat16", "ok": ok})
+    if not ok:
+        raise AssertionError("gradients through flash_attention differ from flash_attention_bwd")
+
+
 def check_gn(torch, F, dtype, case, shape, groups, timed):
     from mrisr_torch.ops import groupnorm as gn
 
@@ -193,6 +310,11 @@ def check_gn(torch, F, dtype, case, shape, groups, timed):
         rec["ms"] = cuda_ms(torch, lambda: gn.group_norm_silu(x, w, bias, groups, 1e-5))
         rec["plain_ms"] = cuda_ms(torch, lambda: gn.group_norm_silu_plain(x, w, bias, groups, 1e-5))
         rec["library_ms"] = cuda_ms(torch, lambda: F.silu(F.group_norm(x, groups, w, bias, 1e-5)))
+        # The backward has no kernel (nor has the reference's): the exact composition, timed alone.
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        out = gn.group_norm_silu(*leaves, groups, 1e-5)
+        rec["backward_composition_ms"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(out, leaves, y, retain_graph=True), max_iters=20)
     emit(rec)
     if not ok:
         raise AssertionError(f"group_norm_silu disagrees with its plain version: {rec}")
@@ -202,21 +324,24 @@ def check_gn(torch, F, dtype, case, shape, groups, timed):
 def phase_kernels(torch):
     import torch.nn.functional as F
 
-    flash, gn = [], []
+    recs = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
+            "group_norm_silu": []}
     for dtype in (torch.bfloat16, torch.float32):
-        for case in FLASH_CASES:
-            flash.append(check_flash(torch, F, dtype, *case, timed=True))
-        for case in FLASH_RAGGED:
-            flash.append(check_flash(torch, F, dtype, *case, timed=False))
+        for cases, timed in ((FLASH_CASES, True), (FLASH_RAGGED, False)):
+            for case in cases:
+                recs["flash_attention_fwd"].append(check_flash(torch, F, dtype, *case, timed=timed))
+                for name, rec in check_flash_bwd(torch, F, dtype, *case, timed=timed).items():
+                    recs[name].append(rec)
         for case in GN_CASES:
-            gn.append(check_gn(torch, F, dtype, *case, timed=True))
+            recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=True))
         for case in GN_RAGGED:
-            gn.append(check_gn(torch, F, dtype, *case, timed=False))
-    return flash, gn
+            recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=False))
+    check_flash_autograd(torch)
+    return recs
 
 
-def profile_chain(torch, run, chain_ms, top=12):
-    """Device time of one chain by kernel, from ``torch.profiler``.
+def profile_chain(torch, run, chain_ms, top=12, ranges=()):
+    """Device time of one chain (or one training step) by kernel, from ``torch.profiler``.
 
     The device's busy time is the sum of the times of the events that ran on
     the device (kernels, copies; one stream, so they do not overlap). Its
@@ -231,11 +356,16 @@ def profile_chain(torch, run, chain_ms, top=12):
         run()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in ranges]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return {"device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / chain_ms,
+    # Named ranges (record_function): the device time from the first to the last
+    # kernel launched inside each, any gap between them included.
+    in_ranges = {e.key: {"device_span_ms": e.device_time_total / 1e3, "count": e.count}
+                 for e in events if e.device_type == DeviceType.CUDA and e.key in ranges}
+    return {"device_busy_ms": busy_ms, "ranges": in_ranges, "idle_share": 1.0 - busy_ms / chain_ms,
             "profiled_chain_ms": profiled_ms, "profiled_idle_share": 1.0 - busy_ms / profiled_ms,
             "device_events": sum(r[2] for r in rows),
             "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]}
@@ -250,7 +380,9 @@ def phase_chain(torch):
 
     n_sites = 2  # CA sites with >= 4096 tokens at 256^2: the 128^2 and 64^2 skips
     n_gn = 2 * 14 + 1  # two ConvBlocks per ResnetBlock, 14 ResnetBlocks, plus final_conv
-    expect = {"flash_attention_fwd": n_sites * STEPS, "group_norm_silu": n_gn * STEPS}
+    # A serving chain launches no backward kernel.
+    expect = {"flash_attention_fwd": n_sites * STEPS, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "group_norm_silu": n_gn * STEPS}
     totals = {k: 0 for k in expect}
     outs = {}
     for profile, kv_pool in (("fast", 8), ("exact", 0)):
@@ -316,28 +448,174 @@ def phase_forward(torch):
            "launches": counts, "max_abs_err": float(err.max()), "ref_abs_max": float(out_cpu.abs().max()),
            "tolerance": FORWARD_TOL, "cpu_forward_s": cpu_s, "ok": ok}
     emit(rec)
-    if not ok or counts != {"flash_attention_fwd": 2, "group_norm_silu": 29}:
+    if not ok or counts != {**TRAIN_LAUNCHES, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
         raise AssertionError(f"full forward on the card disagrees with the CPU plain path: {rec}")
 
 
-def summary(flash, gn, totals):
-    def entry(name, route, source, replaces, recs):
-        main = next(r for r in recs if "ms" in r and r["dtype"] == "bfloat16")  # heaviest main-path shape
-        return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": totals[name], "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"], "case": main["case"], "shape": main["shape"],
-                "dtype": main["dtype"], "max_abs_err_all_checks": max(r["max_abs_err"] for r in recs)}
-
-    return {"kernels": [
-        entry("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu",
-              "mrisr_tpu/ops/flash_attention.py:98", flash),
-        entry("group_norm_silu", "triton", "mrisr_torch/ops/groupnorm.py",
-              "mrisr_tpu/ops/groupnorm.py:57", gn),
-    ]}
+def _synthetic_batch(torch, batch, size, seed, device):
+    """A fixed-seed ``{"sr", "hr"}`` batch of ``[B, S, S, 1]`` images in [-1, 1]; sr is hr blurred by noise."""
+    gen = torch.Generator().manual_seed(seed)
+    hr = torch.rand((batch, size, size, 1), generator=gen) * 2 - 1
+    sr = (hr + 0.1 * torch.randn(hr.shape, generator=gen)).clamp(-1, 1)
+    return {"sr": sr.to(device), "hr": hr.to(device)}
 
 
-def main() -> int:
+def phase_train(torch):
+    from mrisr_torch.diffusion.schedules import resdiff_schedule
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+    from mrisr_torch.train.precision import get_policy
+    from mrisr_torch.train.state import create_train_state, make_optimizer
+    from mrisr_torch.train.steps import make_resdiff_train_step, step_generator
+
+    torch.manual_seed(4)
+    unet = ResDiffUNet(image_size=SIZE)  # the trainer's defaults: dropout 0.2, ca_kv_pool 0
+    sched = resdiff_schedule(1000)
+    batch = _synthetic_batch(torch, BATCH, SIZE, 5, "cuda")
+    totals = {k: 0 for k in TRAIN_LAUNCHES}
+    for precision, remat, n_steps in (("float32", False, 3), ("bfloat16", False, 3), ("bfloat16", True, 1)):
+        state = create_train_state(unet, make_optimizer(TRAIN_LR), ema_decay=TRAIN_EMA)
+        step = make_resdiff_train_step(unet, sched, get_policy(precision), remat=remat)
+        expect = dict(TRAIN_LAUNCHES)
+        if remat:  # the forward runs twice
+            expect.update(flash_attention_fwd=4, group_norm_silu=58)
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            new, metrics = step(state, batch, step_generator(6, i, "cuda"))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            for k in totals:
+                totals[k] += counts[k]
+            loss = float(metrics["loss"])
+            moved = max(float((new.params[k] - p).abs().max()) for k, p in state.params.items())
+            # One Adam step moves a parameter by about lr (at most (1-b1)/sqrt(1-b2) = 3.2 lr).
+            # EMA: ema' = d ema + (1 - d) p', so it moves by (1 - d) of (p' - ema).
+            d = TRAIN_EMA
+            ema_err = max(float((new.ema_params[k] - (d * e + (1 - d) * new.params[k])).abs().max())
+                          for k, e in state.ema_params.items())
+            ema_moved = max(float((new.ema_params[k] - e).abs().max()) for k, e in state.ema_params.items())
+            ulp = 2.0**-23 * max(float(p.abs().max()) for p in new.params.values())  # fp32 spacing at the largest
+            grads_dtypes = sorted({str(p.dtype) for p in new.params.values()})
+            ok = (counts == expect and math.isfinite(loss) and 0.0 < moved <= 4.0 * TRAIN_LR
+                  and ema_err <= 1e-7 and 0.0 < ema_moved <= 4.0 * TRAIN_LR * (1 - d) * (i + 1) + ulp
+                  and new.step == state.step + 1 and grads_dtypes == ["torch.float32"])
+            rec = {"phase": "train", "precision": precision, "remat": remat, "step": i, "batch": BATCH,
+                   "size": SIZE, "launches": counts, "loss": loss, "ms": ms, "param_max_move": moved,
+                   "ema_max_move": ema_moved, "ema_identity_max_err": ema_err, "master_dtypes": grads_dtypes,
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "ok": ok}
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"training step failed its checks (expected launches {expect}): {rec}")
+            state = new
+
+    # One more bf16 + remat-off step under the profiler: where the step's time goes.
+    state = create_train_state(unet, make_optimizer(TRAIN_LR), ema_decay=TRAIN_EMA)
+    step = make_resdiff_train_step(unet, sched, get_policy("bfloat16"))
+    state, _ = step(state, batch, step_generator(6, 0, "cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch, step_generator(6, 1, "cuda"))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    rec = profile_chain(torch, lambda: step(state, batch, step_generator(6, 2, "cuda")), step_ms,
+                        ranges=("group_norm_silu_backward",))
+    emit({"phase": "train_profile", "precision": "bfloat16", "step_ms": step_ms, **rec})
+    return totals
+
+
+def phase_grad(torch):
+    """One fp32 step's gradients: the card's kernels against the CPU's plain versions."""
+    from mrisr_torch.diffusion.schedules import resdiff_schedule
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+    from mrisr_torch.train.state import Optimizer, create_train_state
+    from mrisr_torch.train.steps import make_resdiff_train_step
+
+    torch.manual_seed(7)
+    gpu = ResDiffUNet(image_size=GRAD_SIZE, dropout=0.0)
+    cpu = ResDiffUNet(image_size=GRAD_SIZE, dropout=0.0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    sched = resdiff_schedule(1000)
+    batch = _synthetic_batch(torch, 1, GRAD_SIZE, 8, "cpu")
+    gen = torch.Generator().manual_seed(9)
+    draws = {"gamma": torch.tensor([0.6]), "eps": torch.randn((1, 1, GRAD_SIZE, GRAD_SIZE), generator=gen)}
+
+    def gradients(unet, device):
+        seen = {}
+
+        def record(grads, opt_state, params):  # an optimizer that keeps the gradients and moves nothing
+            seen.update(grads)
+            return {k: torch.zeros_like(g) for k, g in grads.items()}, opt_state
+
+        state = create_train_state(unet, Optimizer(lambda params: {}, record), device=device)
+        step = make_resdiff_train_step(unet, sched, device=device)
+        on = lambda tree: {k: v.to(device) for k, v in tree.items()}  # noqa: E731
+        t0 = time.perf_counter()
+        _, metrics = step(state, on(batch), None, on(draws))
+        loss = float(metrics["loss"])
+        return {k: g.cpu() for k, g in seen.items()}, loss, time.perf_counter() - t0
+
+    reset_launch_counts()
+    g_gpu, loss_gpu, _ = gradients(gpu, "cuda")
+    counts = launch_counts()
+    g_cpu, loss_cpu, cpu_s = gradients(cpu, "cpu")
+    rel = {k: float((g_gpu[k] - g).norm() / g.norm().clamp_min(1e-30)) for k, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    ok = (rel[worst] <= GRAD_TOL and counts == TRAIN_LAUNCHES and launch_counts() == counts
+          and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu))
+    rec = {"phase": "grad", "shape": [1, GRAD_SIZE, GRAD_SIZE, 1], "dtype": "float32", "tf32": False,
+           "dropout": 0.0, "launches": counts, "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "leaves": len(rel),
+           "worst_leaf": worst, "worst_rel_l2": rel[worst], "tolerance": GRAD_TOL, "cpu_step_s": cpu_s, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"gradients on the card disagree with the CPU plain path: {rec}")
+
+
+KERNELS = [  # (name, route, source, the TPU kernel it replaces)
+    ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
+    ("flash_attention_bwd_dq", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:228"),
+    ("flash_attention_bwd_dkv", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:262"),
+    ("group_norm_silu", "triton", "mrisr_torch/ops/groupnorm.py", "mrisr_tpu/ops/groupnorm.py:57"),
+]
+
+
+def summary(recs, chain_totals, train_totals):
+    """The kernels line: launches are those of the main paths (serving chains and training steps)."""
+    entries = []
+    for name, route, source, replaces in KERNELS:
+        main = next(r for r in recs[name] if "ms" in r and r["dtype"] == "bfloat16")  # heaviest main-path shape
+        entries.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": chain_totals[name] + train_totals[name], "launches_serving_chains": chain_totals[name],
+            "launches_training_steps": train_totals[name], "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "case": main["case"], "shape": main["shape"],
+            "dtype": main["dtype"], "max_abs_err_all_checks": max(r["max_abs_err"] for r in recs[name])})
+    return {"kernels": entries}
+
+
+PHASES = ("kernel", "chain", "forward", "train", "grad")
+
+
+def main(argv) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of %(default)s; the kernels line needs kernel, chain and train")
+    parser.add_argument("--log", help="also write every JSON line to this file")
+    args = parser.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        parser.error(f"unknown phase in {phases}")
+    if args.log:
+        global LOG
+        LOG = open(args.log, "w")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -352,10 +630,15 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build(torch)
-    flash, gn = phase_kernels(torch)
-    totals = phase_chain(torch)
-    phase_forward(torch)
-    emit(summary(flash, gn, totals))
+    recs = phase_kernels(torch) if "kernel" in phases else None
+    chain_totals = phase_chain(torch) if "chain" in phases else None
+    if "forward" in phases:
+        phase_forward(torch)
+    train_totals = phase_train(torch) if "train" in phases else None
+    if "grad" in phases:
+        phase_grad(torch)
+    if recs and chain_totals and train_totals:
+        emit(summary(recs, chain_totals, train_totals))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -363,4 +646,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

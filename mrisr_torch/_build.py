@@ -46,27 +46,48 @@ def build_dir() -> Path:
     return BUILD_ROOT / _source_digest()
 
 
-def load_library(name: str, device: str = "cuda") -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+def build_libraries(names: tuple[str, ...], device: str = "cuda") -> None:
+    """Compile every ``csrc/<name>.cu`` that is not built yet, all at once.
 
-    The ptxas report (registers, shared memory, spills) is kept beside the
-    library as ``<name>.log``.
+    One ``nvcc`` process per source, started together.  The ptxas report
+    (registers, shared memory, spills) is kept beside each library as
+    ``<name>.log``.
     """
     resolve_device(device)
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
     out_dir = build_dir()
-    so = out_dir / f"lib{name}.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
+    if not todo:
+        return
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / f"{name}.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr[-4000:]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _LIBS[name] = lib
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append((name, tmp, proc))
+    failed = []
+    for name, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        (out_dir / f"{name}.log").write_text(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{stderr[-4000:]}")
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def ptxas_report(name: str) -> list[str]:
+    """The register, spill and shared-memory lines of ``<name>.log``."""
+    log = (build_dir() / f"{name}.log").read_text()
+    return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def load_library(name: str, device: str = "cuda") -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    resolve_device(device)
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_libraries((name,), device)
+        lib = _LIBS[name] = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
     return lib

@@ -34,46 +34,11 @@
 //     of D; K/V tiles of 32 rows in shared memory, 16 keys per softmax update.
 //   * Ragged N and M: rows past N are computed on zeros and not stored, keys
 //     past M are zero-filled and masked to -inf before the softmax.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) of a [rows_total, D] bf16 matrix into shared
-// memory with row stride LD, zero-filling rows past rows_total.
-template <int D, int ROWS, int LD, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int rows_total) {
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  for (int c = threadIdx.x; c < ROWS * kChunksPerRow; c += THREADS) {
-    const int r = c / kChunksPerRow;
-    const int cc = c % kChunksPerRow;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows_total) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + cc * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + cc * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(128)
@@ -336,13 +301,6 @@ __global__ void __launch_bounds__(256)
     }
     if (part == 0) lse[(size_t)b * N + qrow] = m_run * kLn2 + logf(fmaxf(l_run, 1e-37f));
   }
-}
-
-// Kernels above 48 KB of dynamic shared memory must opt in first.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int D>

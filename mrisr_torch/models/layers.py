@@ -2,8 +2,9 @@
 
 Activations are NCHW.  Submodules carry the Flax names (``GroupNorm_0``,
 ``Conv_0``, ``Dense_0``, ...) so that ``mrisr_torch/weights.py`` maps a Flax
-param tree onto them name for name.  Modules run in eval mode: dropout, which
-the reference applies only in training, is not ported.
+param tree onto them name for name.  Dropout (the second ``ConvBlock`` of every
+``ResnetBlock``) acts in training mode only and draws its masks from the
+``torch.Generator`` handed down by the caller, never from the global RNG.
 """
 from __future__ import annotations
 
@@ -87,36 +88,47 @@ class SEBlock(nn.Module):
         return x * y[:, :, None, None] + x
 
 
-class ConvBlock(nn.Module):
-    """GroupNorm -> swish -> 3x3 conv; GN+swish runs through the fused kernel."""
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Zero each element with probability ``rate`` and scale the rest by ``1 / (1 - rate)``."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator on the tensor's device")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
-    def __init__(self, in_channels: int, features: int, groups: int = 32):
+
+class ConvBlock(nn.Module):
+    """GroupNorm -> swish -> (dropout) -> 3x3 conv; GN+swish runs through the fused kernel."""
+
+    def __init__(self, in_channels: int, features: int, groups: int = 32, dropout: float = 0.0):
         super().__init__()
         self.groups = groups
+        self.dropout = dropout
         self.GroupNorm_0 = nn.GroupNorm(groups, in_channels, eps=GN_EPS)
         self.Conv_0 = nn.Conv2d(in_channels, features, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         gn = self.GroupNorm_0
         h = group_norm_silu(x, gn.weight, gn.bias, self.groups, gn.eps)
+        if self.training and self.dropout > 0.0:
+            h = dropout(h, self.dropout, generator)
         return self.Conv_0(h)
 
 
 class ResnetBlock(nn.Module):
     """SR3 residual block with feature-wise noise-embedding injection."""
 
-    def __init__(self, in_channels: int, features: int, groups: int, emb_dim: int):
+    def __init__(self, in_channels: int, features: int, groups: int, emb_dim: int, dropout: float = 0.0):
         super().__init__()
         self.ConvBlock_0 = ConvBlock(in_channels, features, groups)
         self.Dense_0 = nn.Linear(emb_dim, features)
-        self.ConvBlock_1 = ConvBlock(features, features, groups)
+        self.ConvBlock_1 = ConvBlock(features, features, groups, dropout)
         if in_channels != features:
             self.Conv_0 = nn.Conv2d(in_channels, features, 1)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.ConvBlock_0(x)
         h = h + self.Dense_0(emb)[:, :, None, None]
-        h = self.ConvBlock_1(h)
+        h = self.ConvBlock_1(h, generator)
         if hasattr(self, "Conv_0"):
             x = self.Conv_0(x)
         return h + x
@@ -141,14 +153,16 @@ class SelfAttention2D(nn.Module):
 
 
 class ResnetBlockWithAttn(nn.Module):
-    def __init__(self, in_channels: int, features: int, groups: int, emb_dim: int, with_attn: bool):
+    def __init__(
+        self, in_channels: int, features: int, groups: int, emb_dim: int, with_attn: bool, dropout: float = 0.0
+    ):
         super().__init__()
-        self.ResnetBlock_0 = ResnetBlock(in_channels, features, groups, emb_dim)
+        self.ResnetBlock_0 = ResnetBlock(in_channels, features, groups, emb_dim, dropout)
         if with_attn:
             self.SelfAttention2D_0 = SelfAttention2D(features, groups)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        x = self.ResnetBlock_0(x, emb)
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.ResnetBlock_0(x, emb, generator)
         if hasattr(self, "SelfAttention2D_0"):
             x = self.SelfAttention2D_0(x)
         return x

@@ -81,7 +81,9 @@ class ResDiffUNet(nn.Module):
     one res-block per level, GroupNorm(16), mid self-attention only.
     ``ca_kv_pool >= 2`` is the fast serving profile (K/V pooled at the CA
     sites with at least ``ca_kv_pool_min_tokens`` tokens); 0 is exact.
-    The module is built on ``device`` (CUDA by default; raises if absent).
+    The module is built on ``device`` (CUDA by default; raises if absent) and
+    comes up in eval mode; after ``.train()`` every ResnetBlock applies
+    ``dropout`` with masks drawn from ``forward``'s ``generator``.
     """
 
     def __init__(
@@ -92,6 +94,7 @@ class ResDiffUNet(nn.Module):
         res_blocks: int = 1,
         attn_res: Sequence[int] = (8,),
         norm_groups: int = 16,
+        dropout: float = 0.2,
         out_channels: int = 1,
         ca_kv_pool: int = 0,
         ca_kv_pool_min_tokens: int = 4096,
@@ -118,7 +121,7 @@ class ResDiffUNet(nn.Module):
 
         def add_rba(cin, cout, attn):
             nonlocal rba
-            self.add_module(f"ResnetBlockWithAttn_{rba}", ResnetBlockWithAttn(cin, cout, groups, inner, attn))
+            self.add_module(f"ResnetBlockWithAttn_{rba}", ResnetBlockWithAttn(cin, cout, groups, inner, attn, dropout))
             rba += 1
 
         pre, now_res, feat_ch = inner, image_size, [inner]
@@ -155,7 +158,9 @@ class ResDiffUNet(nn.Module):
         queries = haar_dwt_highpass_sum(cnn_x, len(self.channel_mults) - 1)
         return self.fd_spliter.static_features(cnn_x), tuple(queries)
 
-    def forward(self, x: torch.Tensor, gamma: torch.Tensor, static=None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, gamma: torch.Tensor, static=None, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         b, _, H, W = x.shape
         if H != self.image_size or W != self.image_size:
             raise ValueError(f"built for {self.image_size}^2 inputs, got {H}x{W}")
@@ -174,7 +179,7 @@ class ResDiffUNet(nn.Module):
 
         def block(inp):
             nonlocal n_rba
-            out = getattr(self, f"ResnetBlockWithAttn_{n_rba}")(inp, emb)
+            out = getattr(self, f"ResnetBlockWithAttn_{n_rba}")(inp, emb, generator)
             n_rba += 1
             return out
 

@@ -2,8 +2,9 @@
 
 All inputs are ``[B, N, D]`` (already head-split if multi-head).  Dispatch
 follows the reference: sequences of ``CHUNK_THRESHOLD`` tokens or more go to
-the flash-attention kernel on a CUDA tensor and to the exact q-chunked path on
-the CPU; shorter ones use dense attention on either device.
+``flash_attention`` (the kernels on a CUDA tensor, their plain q-chunked
+version on a CPU tensor; differentiable on both); shorter ones use dense
+attention on either device.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import math
 
 import torch
 
-from mrisr_torch.ops.flash_attention import flash_attention_fwd
+from mrisr_torch.ops.flash_attention import flash_attention
 
 CHUNK_THRESHOLD = 4096
 DEFAULT_CHUNK = 512
@@ -26,7 +27,11 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 def chunked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, chunk: int = DEFAULT_CHUNK
 ) -> torch.Tensor:
-    """Exact attention with O(chunk * M) peak memory (a loop over q chunks)."""
+    """Exact attention in q chunks, dense when ``n`` is no multiple of ``chunk``.
+
+    The reference's CPU path; the port keeps it as a yardstick for its tests
+    and runs :func:`flash_attention` instead.
+    """
     n = q.shape[1]
     if n % chunk != 0:
         return dense_attention(q, k, v, scale)
@@ -36,12 +41,8 @@ def chunked_attention(
 
 
 def _attend(q, k, v, scale):
-    n = q.shape[1]
-    if n >= CHUNK_THRESHOLD:
-        if q.is_cuda:
-            return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), scale)[0]
-        if n % DEFAULT_CHUNK == 0:
-            return chunked_attention(q, k, v, scale)
+    if q.shape[1] >= CHUNK_THRESHOLD:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
     return dense_attention(q, k, v, scale)
 
 

@@ -1,14 +1,23 @@
-"""Flash-attention forward: CUDA kernel and its plain PyTorch version.
+"""Flash attention: the CUDA kernels (forward, dQ, dK/dV) and their plain PyTorch versions.
 
-Port of ``mrisr_tpu/ops/flash_attention.py::_flash_kernel`` (launched by
-``_flash_forward``).  The kernel is ``csrc/flash_attn_fwd.cu``; its design and
-its bound on the H100 are described there.
+Port of ``mrisr_tpu/ops/flash_attention.py``: ``_flash_kernel`` (launched by
+``_flash_forward``) is ``csrc/flash_attn_fwd.cu``; ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel`` (launched by ``_flash_backward``) are
+``csrc/flash_attn_bwd.cu``.  Each design and its bound on the H100 are
+described in its source.
 
-``flash_attention_fwd(q, k, v, scale)`` computes non-causal
-``softmax(scale * q k^T) v`` on ``[B, N, D]`` / ``[B, M, D]`` and returns
-``(o [B, N, D] in the input dtype, lse [B, N] float32, natural log)``.
-On a CPU tensor it runs :func:`flash_attention_plain`; on a CUDA tensor it
-launches the kernel (bf16 or float32, D in {32, 64, 128}) or raises.
+* ``flash_attention_fwd(q, k, v, scale)`` computes non-causal
+  ``softmax(scale * q k^T) v`` on ``[B, N, D]`` / ``[B, M, D]`` and returns
+  ``(o [B, N, D] in the input dtype, lse [B, N] float32, natural log)``.
+* ``flash_attention_bwd(q, k, v, o, lse, do, scale)`` returns ``(dq, dk, dv)``
+  with the probabilities recomputed from ``lse``.
+* ``flash_attention(q, k, v, scale)`` returns ``o`` and is differentiable: a
+  ``torch.autograd.Function`` over the two (the counterpart of
+  ``flash_attention_tpu`` with ``_flash_fwd`` / ``_flash_bwd``).
+
+On a CPU tensor each runs its plain version (``flash_attention_plain``,
+``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
+(bf16 or float32, D in {32, 64, 128}) or raises.
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ import ctypes
 
 import torch
 
-from mrisr_torch._build import load_library
+from mrisr_torch._build import build_libraries, load_library
 
 KERNEL_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -41,6 +50,30 @@ def flash_attention_plain(
     return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=1)
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, scale: float, chunk: int = PLAIN_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` in float32 math, q-chunked like :func:`flash_attention_plain`.
+
+    ``p = exp(scale q k^T - lse)``, ``dp = do v^T``, ``ds = p (dp - delta)``
+    with ``delta = rowsum(do * o)``; ``dq = scale ds k``, ``dk = scale ds^T q``,
+    ``dv = p^T do``.  Never materialises more than ``[B, chunk, M]``.
+    """
+    kf, vf = k.float(), v.float()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    dqs = []
+    for i in range(0, q.shape[1], chunk):
+        qc, doc = q[:, i : i + chunk].float(), do[:, i : i + chunk].float()
+        p = torch.exp(torch.einsum("bnd,bmd->bnm", qc, kf) * scale - lse[:, i : i + chunk, None])
+        dv += torch.einsum("bnm,bnd->bmd", p, doc)
+        ds = p * (torch.einsum("bnd,bmd->bnm", doc, vf) - delta[:, i : i + chunk, None])
+        dqs.append(torch.einsum("bnm,bmd->bnd", ds, kf) * scale)
+        dk += torch.einsum("bnm,bnd->bmd", ds, qc) * scale
+    return torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("flash attention takes [B, N, D] tensors")
@@ -55,30 +88,48 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"tensors on different devices: {devs}")
 
 
-def _kernel_lib(device: str = "cuda") -> ctypes.CDLL:
-    lib = load_library("flash_attn_fwd", device)
-    fn = lib.mrisr_flash_attn_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ENTRY_POINTS = {  # library -> {C function: argument types}
+    "flash_attn_fwd": {
+        "mrisr_flash_attn_fwd": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR],
+    },
+    "flash_attn_bwd": {
+        "mrisr_flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [ctypes.c_float, _PTR],
+        "mrisr_flash_attn_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [ctypes.c_float, _PTR],
+    },
+}
+
+
+def _kernel_lib(name: str = "flash_attn_fwd", device: str = "cuda") -> ctypes.CDLL:
+    lib = load_library(name, device)
+    for fn_name, argtypes in _ENTRY_POINTS[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
-    """Launch the CUDA kernel on contiguous CUDA tensors (no counting)."""
-    if q.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"flash kernel takes bfloat16 or float32, got {q.dtype}")
-    b, n, d = q.shape
-    m = k.shape[1]
+def _check_kernel_inputs(d: int, batch: int, **tensors: torch.Tensor) -> None:
+    dtype = next(iter(tensors.values())).dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"flash kernel takes bfloat16 or float32, got {dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes D in {KERNEL_HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if batch > 65535:
+        raise ValueError(f"batch {batch} exceeds the kernel's grid limit")
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"flash kernel needs contiguous {name}")
         if t.data_ptr() % 16:
             raise ValueError(f"flash kernel needs 16-byte aligned {name}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """Launch the forward kernel on contiguous CUDA tensors (no counting)."""
+    b, n, d = q.shape
+    m = k.shape[1]
+    _check_kernel_inputs(d, b, q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -109,6 +160,98 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
-def build(device: str = "cuda") -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library."""
-    return _kernel_lib(device)
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}"
+        )
+    if not (o.dtype == do.dtype == q.dtype) or lse.dtype != torch.float32:
+        raise TypeError(f"dtype mismatch: q {q.dtype} o {o.dtype} do {do.dtype} lse {lse.dtype}")
+    if {o.device, lse.device, do.device} != {q.device}:
+        raise ValueError("tensors on different devices")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """Launch the dQ kernel: ``delta`` is ``rowsum(do * o)`` in float32, ``[B, N]``."""
+    b, n, d = q.shape
+    _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel_lib("flash_attn_bwd").mrisr_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash attention dQ kernel launch failed: cudaError {err}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel; arguments as :func:`flash_attention_bwd_dq`."""
+    b, n, d = q.shape
+    _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel_lib("flash_attn_bwd").mrisr_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash attention dK/dV kernel launch failed: cudaError {err}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the cotangent ``do`` of ``o``."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    # As in the reference, delta is reduced outside the kernels.
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Differentiable non-causal attention ``[B, N, D] -> [B, N, D]``; see the module docstring."""
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+LIBRARIES = tuple(_ENTRY_POINTS)
+
+
+def build(device: str = "cuda") -> None:
+    """Compile (if needed, both sources at once) and load the kernel libraries."""
+    build_libraries(LIBRARIES, device)
+    for name in LIBRARIES:
+        _kernel_lib(name, device)

@@ -129,7 +129,7 @@ def test_dense_and_chunked_attention_match(n, m, d):
 
 
 def test_cross_attention_dispatch_at_4096_tokens_matches():
-    """n >= 4096 on a CPU tensor takes the chunked path, as in the reference."""
+    """n >= 4096 on a CPU tensor takes the flash function's plain q-chunked path: no launch."""
     rng = np.random.default_rng(4)
     q, k, v = (rng.standard_normal((1, 4096, 8)).astype(np.float32) for _ in range(3))
     want = np.asarray(j_attn.cross_attention_2d(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
@@ -137,6 +137,33 @@ def test_cross_attention_dispatch_at_4096_tokens_matches():
     got = t_attn.cross_attention_2d(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
     np.testing.assert_allclose(_np(got), want, atol=2e-6)
     assert t_flash.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("image_size,tokens", [(128, 4096), (136, 4624)])
+def test_cpu_unet_runs_the_flash_plain_version_at_4096_tokens(monkeypatch, image_size, tokens):
+    """One plain attention path: a CPU UNet's CA site with >= 4096 tokens runs B1's plain version.
+
+    4624 tokens is no multiple of 512: the q-chunked reference path would
+    have turned dense there.  The result equals the all-dense forward.
+    """
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+
+    torch.manual_seed(0)
+    unet = ResDiffUNet(image_size=image_size, inner_channel=8, norm_groups=4, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 2, image_size, image_size), generator=gen)
+    gamma = torch.tensor([0.6])
+    calls = []
+    plain = t_flash.flash_attention_plain
+    monkeypatch.setattr(t_flash, "flash_attention_plain",
+                        lambda q, k, v, scale: calls.append(q.shape[1]) or plain(q, k, v, scale))
+    with torch.no_grad():
+        got = unet(x, gamma)
+        assert calls == [tokens]  # the next site has a quarter of the tokens and is dense
+        monkeypatch.setattr(t_attn, "CHUNK_THRESHOLD", 10**9)
+        want = unet(x, gamma)
+    assert calls == [tokens] and t_flash.flash_attention_fwd.launches == 0
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize(
@@ -204,7 +231,7 @@ def test_wrappers_reject_bad_input():
 # Hygiene
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "flax", "mrisr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mrisr_tpu")
 
 
 def _imports(path: Path) -> set[str]:
@@ -219,7 +246,9 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "mrisr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert len(files) > 25 and {"mrisr_torch/train/steps.py", "mrisr_torch/train/state.py",
+                                "mrisr_torch/utils/checkpoint.py", "mrisr_torch/diffusion/sr3.py"} <= names
     for path in files:
         bad = _imports(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
@@ -230,15 +259,29 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.models.simple_cnn import SimpleCNN
     from mrisr_torch.pipelines.resdiff import ResDiffPipeline
+    from mrisr_torch.train import state as t_state
+    from mrisr_torch.train import steps as t_steps
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = dict(image_size=16, inner_channel=8, norm_groups=4)
     for make in (lambda: ResDiffUNet(**small), SimpleCNN, ops.build_kernels,
-                 lambda: _build.load_library("flash_attn_fwd")):
+                 lambda: _build.load_library("flash_attn_fwd"), lambda: _build.load_library("flash_attn_bwd")):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
     unet, cnn = ResDiffUNet(**small, device="cpu"), SimpleCNN(device="cpu")
+    sched = t_sched.resdiff_schedule(100)
+    for make in (lambda: t_state.create_train_state(unet, t_state.make_optimizer()),
+                 lambda: t_steps.make_resdiff_train_step(unet, sched),
+                 lambda: t_steps.make_resdiff_train_many(unet, sched),
+                 lambda: t_steps.make_cnn_train_step(cnn),
+                 lambda: t_steps.make_cnn_train_many(cnn)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    state = t_state.create_train_state(unet, t_state.make_optimizer(), device="cpu")
+    assert next(iter(state.params.values())).device.type == "cpu"
+    t_steps.make_resdiff_train_step(unet, sched, device="cpu")
+    assert unet.training  # the trainer turns dropout on; the pipeline below turns it off again
     with pytest.raises(RuntimeError, match="is_available"):
         ResDiffPipeline(cnn, unet, t_sched.resdiff_schedule(1000))
     pipe = ResDiffPipeline(cnn, unet, t_sched.resdiff_schedule(1000), device="cpu")
-    assert next(pipe.unet.parameters()).device.type == "cpu"
+    assert next(pipe.unet.parameters()).device.type == "cpu" and not pipe.unet.training
