@@ -9,11 +9,16 @@ card; without one, or when any phase fails, it exits non-zero and prints no
 result.  Each phase prints JSON lines:
 
 1. ``device``: the card, and its name and power limit from nvidia-smi;
-2. ``build``: seconds to build the kernels, and the ptxas register report;
+2. ``build``: seconds to build the kernels, the ptxas register report (no
+   spills, and no serialized wgmma pipeline in the forward), and the HGMMA
+   (wgmma) instruction count of each bf16 forward kernel from
+   ``cuobjdump -sass`` (none may be 0);
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and fp32 (plus ragged shapes), with its
    time beside its bound, the plain version's time and one PyTorch library
-   call's time (timed only; the port never calls it); and gradients through
+   call's time (timed only; the port never calls it); for the forward also
+   the kernel's own device time (``torch.profiler``) and the wrapper's host
+   microseconds per call; and gradients through
    the autograd function against the direct backward call;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
    through ``ResDiffPipeline.super_resolve``, in the fast (ca_kv_pool=8) and
@@ -57,7 +62,9 @@ FLASH_CASES = [  # (case, B, N, M, D): the chain's two flash sites, both profile
     ("site1_exact", BATCH, 4096, 4096, 64),
     ("site1_fast", BATCH, 4096, 64, 64),
 ]
-FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ragged", 3, 130, 70, 128)]
+FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ragged", 3, 130, 70, 128),
+                # fewer queries than one CTA and keys than one tile; keys ending mid-tile at B >= 2, D=64
+                ("ragged", 2, 37, 5, 32), ("ragged", 2, 300, 1000, 64)]
 GN_CASES = [  # (case, shape, groups): the chain's largest and smallest ConvBlock heads
     ("largest", (BATCH, 96, 256, 256), 16),
     ("smallest", (BATCH, 128, 32, 32), 16),
@@ -126,6 +133,41 @@ def cuda_ms(torch, fn, min_total_ms=200.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, kernel_part, iters=20, attempts=3):
+    """Mean device time per call of the kernels whose name holds ``kernel_part``, from ``torch.profiler``.
+
+    The tracer may miss launches at the start of a window, or a whole window;
+    a window counts when it saw most of the calls.  None when no attempt did.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel_part in e.key]
+        count = sum(e.count for e in events)
+        if iters // 2 <= count <= iters:
+            return sum(e.device_time_total for e in events) / count / 1e3
+    return None
+
+
+def host_us(torch, fn, iters=200):
+    """Host microseconds per call: the time to enqueue ``iters`` calls, before the device is waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def bound(n_bytes, n_ops, peak_ops):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -143,6 +185,26 @@ def phase_device(torch):
     return smi
 
 
+def sass_counts(so_path, opcode):
+    """Instructions with ``opcode`` in each kernel of a built library, from ``cuobjdump -sass``."""
+    import os
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            m = re.search(r"(flash_[a-z0-9]+_[a-z0-9]+_kernel)ILi(\d+)E", mangled)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else mangled
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build(torch):
     import triton
 
@@ -157,9 +219,17 @@ def phase_build(torch):
     ptxas = {name: _build.ptxas_report(name) for name in flash_attention.LIBRARIES}
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
+    # The bf16 forward is built on wgmma: its SASS must hold HGMMA instructions.
+    hgmma = {k: n for k, n in sass_counts(_build.build_dir() / "libflash_attn_fwd.so", "HGMMA").items()
+             if "bf16" in k}
     emit({"phase": "build", "flash_attn_nvcc_s": t1 - t0, "sources": list(flash_attention.LIBRARIES),
           "group_norm_silu_triton_s": t2 - t1, "triton": triton.__version__,
-          "kernels_with_spills": spills, "ptxas": ptxas})
+          "kernels_with_spills": spills, "flash_fwd_bf16_hgmma": hgmma, "ptxas": ptxas})
+    # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
+    serialized = [ln for ln in ptxas["flash_attn_fwd"] if "Performance Loss" in ln]
+    if len(hgmma) != 3 or not all(hgmma.values()) or any(spills.values()) or serialized:
+        raise AssertionError(f"build: bf16 forward HGMMA counts {hgmma}, kernels with spills {spills}, "
+                             f"ptxas performance notes {serialized}")
 
 
 def check_flash(torch, F, dtype, case, b, n, m, d, timed):
@@ -194,6 +264,10 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
             n_bytes, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
         rec["exp_floor_ms"] = b * n * m / PEAK_EXPS * 1e3
         rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale))
+        # The kernel alone (device time) and the wrapper's host time per call:
+        # where ms is near host_us and well above device_ms, the wrapper sets the time.
+        rec["device_ms"] = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale), "flash_fwd_")
+        rec["host_us"] = host_us(torch, lambda: fa.flash_attention_fwd(q, k, v, scale))
         rec["plain_ms"] = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, scale), max_iters=10)
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]  # [B, 1 head, N, D]: fused backends take 4-D
         rec["library_ms"] = cuda_ms(
@@ -593,7 +667,8 @@ def summary(recs, chain_totals, train_totals):
             "launches": chain_totals[name] + train_totals[name], "launches_serving_chains": chain_totals[name],
             "launches_training_steps": train_totals[name], "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "case": main["case"], "shape": main["shape"],
+            "library_ms": main["library_ms"], "device_ms": main.get("device_ms"),
+            "case": main["case"], "shape": main["shape"],
             "dtype": main["dtype"], "max_abs_err_all_checks": max(r["max_abs_err"] for r in recs[name])})
     return {"kernels": entries}
 

@@ -12,190 +12,406 @@
 // heaviest call of the serving chain -- the cross-attention at the 128^2 skip,
 // exact profile: B=8, N=M=16384, D=32, bf16:
 //   * matrix products: 4*B*N*M*D = 275 GFLOP -> 0.28 ms on the tensor cores;
-//   * exponentials: B*N*M = 2.1 G -> about 0.6 ms at the ~3.7 T/s rate of the
-//     special-function units.  At D=32 the exponentials, not the tensor
-//     cores, set the floor (the TPU kernel was VPU-bound for the same reason);
+//   * exponentials: B*N*M = 2.1 G -> about 0.58 ms at the 16 per clock per SM
+//     of the special-function units.  At D=32 the exponentials, not the
+//     tensor cores, set the floor (the TPU kernel was VPU-bound for the same
+//     reason), so every other instruction per score competes with them;
 //   * bytes: ~34 MB -> 10 us.
-// With K/V pooled 8x8 (M=256) the call moves ~17 MB and is bound by bytes
-// (about 5 us).
+// At the 64^2 skip (8x4096x4096x64) the tensor-core and exp floors are about
+// equal (0.035 and 0.036 ms).  With K/V pooled 8x8 (M=256 or 64) the call is
+// bound by bytes (a few us) and by the wrapper's host time.
 //
-// Design (simple and right first; wgmma/TMA are later work):
-//   * One thread block per (batch, 64-row Q tile).  The TPU carried m/l/acc
-//     across a sequential grid axis in VMEM scratch; Hopper blocks run in no
-//     order, so the loop over K/V tiles runs inside the block instead.
-//   * bf16: 4 warps, 16 Q rows each.  K/V tiles of 64 rows are staged in
-//     shared memory (rows padded by 16 bytes, so fragment loads are free of
-//     bank conflicts).  S = Q K^T and O += P V run on mma.sync m16n8k16 with
-//     fp32 accumulators; m, l and O stay in registers.  The scale is applied
-//     in fp32 to S and folded with log2(e), so each probability is one exp2.
-//     P is rounded to bf16 for the PV product, and the denominator sums the
-//     same rounded values.
+// bf16 design (FlashAttention-3's shape, written in raw PTX: hopper.cuh).
+// Choices marked (sweep) were timed against the alternative named, in turns
+// on one H100, by mrisr_torch/tools/flash_fwd_sweep.py (numbers in PERF.md).
+//   * One CTA per (batch, 128 Q rows): a producer warpgroup and two consumer
+//     warpgroups of 64 Q rows each; setmaxnreg gives the producer 24
+//     registers a thread and the consumers 240.  The TPU carried m/l/acc
+//     across a sequential grid axis; here the K/V loop runs inside the CTA.
+//     Three consumer warpgroups (192 rows, 160 registers) at D=32 were
+//     6-10 % slower (sweep).  At D=64 the 8x4096 grid is 256 CTAs, under two waves
+//     on 132 SMs; 264 CTAs (two full waves) take the same time (sweep), so
+//     smaller CTAs or a persistent tile loop could win at most the ~3 % of
+//     empty slots, and 128-row CTAs are kept.
+//   * One elected producer thread loads Q once and K and V tiles of BK=128
+//     keys into a ring of kStages shared-memory stages with TMA
+//     (cp.async.bulk.tensor over 3-D tensor maps [B, rows, D], so the
+//     zero fill past the last row happens per batch).  Each stage has a
+//     full and an empty mbarrier for K and for V.  Rows are 64 bytes at
+//     D=32 (64B swizzle), 128 bytes at D=64 (128B swizzle), and D=128 is two
+//     boxes of 64 columns (128B swizzle).  BK is 128 at every D: S (64
+//     registers) plus P (32) plus O (16-64) fit in 240; BK=256 at D=32 was
+//     22-27 % slower (sweep).
+//   * S = Q K^T with wgmma m64n128k16, both operands K-major shared-memory
+//     descriptors.  Per tile t a consumer issues S(t), rescales O, issues
+//     O += P(t-1) V(t-1), runs the softmax of S(t) while that product runs,
+//     and packs P(t) once it has retired.  Where the tensor cores are a
+//     bound (D >= 64) the two consumers take turns issuing on named
+//     barriers, so one's exponentials overlap the other's products (8 %
+//     faster at D=64, 7-11 % at D=128, but 2-3 % slower at D=32; sweep).
+//   * Softmax on the accumulators: the row max over raw scores (four
+//     independent chains, then two quad shuffles; one chain was 2-8 %
+//     slower at D=32; sweep), then each score is one FFMA (s * scale*log2(e) - m) and one
+//     ex2.approx.  Keys >= M are masked only in the last tile, and only when
+//     M % BK != 0.
+//   * O += P V with the RS form: P leaves the S accumulators as bf16 A
+//     fragments by packing adjacent pairs (the accumulator and A-fragment
+//     layouts line up), and V is an MN-major B operand read with wgmma's
+//     transpose bit.
+//   * The denominator sums the bf16-rounded p, as the reference's V_AUG does,
+//     on the tensor cores: one wgmma m64n8k16 per k-step against a tile of
+//     ones in shared memory gives the row sums of P in fp32 with no
+//     per-score add (summing in registers was 39-47 % slower at D=32 and
+//     7-8 % at D=64; sweep).
+//   * wgmma operands are pinned with fence_regs around each batch: a write
+//     to them that the compiler moves inside a batch makes ptxas serialize
+//     every wgmma of the kernel (notes C7511/C7513; chip_smoke.py's build
+//     phase fails on them).
+//   * Epilogue: O / l in bf16 and lse = m ln2 + ln l, rows past N not stored.
 //   * fp32: plain FMA (no TF32), 4 threads per Q row, each owning a quarter
 //     of D; K/V tiles of 32 rows in shared memory, 16 keys per softmax update.
-//   * Ragged N and M: rows past N are computed on zeros and not stored, keys
-//     past M are zero-filled and masked to -inf before the softmax.
+#include <cuda.h>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;  // Q rows per block of the fp32 kernel
 
+// Tile table of the bf16 kernel, per head dimension D.
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int N, int M, float scale_log2) {
-  constexpr int BK = 64;
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;  // k-steps of the QK^T product
-  constexpr int ND = D / 8;   // n-blocks of the output
-  constexpr int NS = BK / 8;  // n-blocks of the score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBlockQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  const uint16_t* Vs16 = reinterpret_cast<const uint16_t*>(Vs);
+struct Bf16Tiles {
+  static constexpr int kConsumers = 2;               // consumer warpgroups, 64 Q rows each
+  static constexpr int kRowsQ = 64 * kConsumers;     // Q rows per CTA
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // Registers a thread after setmaxnreg: the producer gives up what the
+  // consumers take, from the 65536 / kThreads each starts with.
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr int kKeys = 128;                  // BK: keys per K/V tile
+  static constexpr int kStages = D == 128 ? 2 : (D == 64 ? 3 : 4);
+  // The two consumer warpgroups take turns issuing their products (named
+  // barriers) where the tensor cores are a bound (D >= 64); at D=32 the
+  // exponentials are, and the turns cost more than they give.
+  static constexpr bool kPingPong = D >= 64;
+  static_assert(!kPingPong || kConsumers == 2, "turns are taken between two consumer warpgroups");
+  static constexpr int kBox = D == 128 ? 64 : D;     // columns per TMA box
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kRowBytes = kBox * 2;         // bytes per row of a box: 64 or 128
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B
+  static constexpr int kQBytes = kRowsQ * D * 2;
+  static constexpr int kTileBytes = kKeys * D * 2;   // one K (or V) stage
+  static constexpr int kOnesBytes = 1024;
+  static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
+  // Shared memory: Q, K stages, V stages, ones, barriers, plus slack to align the base to 1024.
+  static constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kOnesBytes + kBarBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // row within the 8-row group
-  const int tig = lane & 3;  // thread in group
-  const __nv_bfloat16* qb = q + (size_t)b * N * D;
-  const __nv_bfloat16* kb = k + (size_t)b * M * D;
-  const __nv_bfloat16* vb = v + (size_t)b * M * D;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  load_tile_bf16<D, kBlockQ, LD, 128>(Qs, qb, q0, N);
-  __syncthreads();
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bf162_bits(__floats2bfloat162_rn(lo, hi));
+}
 
-  // A fragments of this warp's 16 Q rows, kept in registers for all tiles.
-  uint32_t qa[KD][4];
-  const int r0 = warp * 16;
+// The online-softmax update of one score tile, in place.  s: this thread's
+// scores of rows g and g+8 (wgmma layout), replaced by exp2(s * sl2 - m);
+// m0/m1: running row maxima in log2 units; a0/a1: the factor the previous O
+// and l must be scaled by.  Keys >= valid are masked when `mask` is set.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float& m0, float& m1, float& a0, float& a1,
+                                             float sl2, bool mask, int valid, int t4) {
+  if (mask) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const __nv_bfloat16* base = Qs + (r0 + g) * LD + kd * 16 + tig * 2;
-    qa[kd][0] = *reinterpret_cast<const uint32_t*>(base);
-    qa[kd][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-    qa[kd][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qa[kd][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-  }
-
-  // Rows g and g+8 of the warp's slice: running max (log2 units), this
-  // thread's share of the denominator, and the output accumulator.
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  const int n_tiles = (M + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile_bf16<D, BK, LD, 128>(Ks, kb, k0, M);
-    load_tile_bf16<D, BK, LD, 128>(Vs, vb, k0, M);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LD + kd * 16 + tig * 2;
-        mma_bf16_16816(s[j], qa[kd], *reinterpret_cast<const uint32_t*>(kp),
-                       *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tig * 2 + (e & 1);
-        const float val = key < M ? s[j][e] * scale_log2 : -INFINITY;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // Key k0 is always valid, so m_new is finite and alpha is exp2(-inf)=0
-      // on the first tile.
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-
-    // P in bf16, laid out directly as the A fragments of the PV product.
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const __nv_bfloat162 lo =
-          __floats2bfloat162_rn(exp2f(s[j][0] - m_run[0]), exp2f(s[j][1] - m_run[0]));
-      const __nv_bfloat162 hi =
-          __floats2bfloat162_rn(exp2f(s[j][2] - m_run[1]), exp2f(s[j][3] - m_run[1]));
-      const float2 flo = __bfloat1622float2(lo);
-      const float2 fhi = __bfloat1622float2(hi);
-      l_run[0] += flo.x + flo.y;
-      l_run[1] += fhi.x + fhi.y;
-      pa[j >> 1][(j & 1) * 2 + 0] = bf162_bits(lo);
-      pa[j >> 1][(j & 1) * 2 + 1] = bf162_bits(hi);
-    }
-
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const int key = kk * 16 + tig * 2;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        const int col = nd * 8 + g;
-        const uint32_t b0 = (uint32_t)Vs16[key * LD + col] |
-                            ((uint32_t)Vs16[(key + 1) * LD + col] << 16);
-        const uint32_t b1 = (uint32_t)Vs16[(key + 8) * LD + col] |
-                            ((uint32_t)Vs16[(key + 9) * LD + col] << 16);
-        mma_bf16_16816(acc[nd], pa[kk], b0, b1);
+        if (j * 8 + t4 * 2 + (e & 1) >= valid) s[4 * j + e] = -INFINITY;
       }
     }
   }
+  // Row maxima as four independent chains per row, so the exponentials wait
+  // on a short dependency chain.
+  float c0[4], c1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c0[i] = fmaxf(s[4 * i], s[4 * i + 1]);
+    c1[i] = fmaxf(s[4 * i + 2], s[4 * i + 3]);
+  }
+#pragma unroll
+  for (int j = 4; j < BK / 8; ++j) {
+    c0[j % 4] = fmaxf(c0[j % 4], fmaxf(s[4 * j], s[4 * j + 1]));
+    c1[j % 4] = fmaxf(c1[j % 4], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float mx0 = fmaxf(fmaxf(c0[0], c0[1]), fmaxf(c0[2], c0[3]));
+  float mx1 = fmaxf(fmaxf(c1[0], c1[1]), fmaxf(c1[2], c1[3]));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // scale_log2 > 0, so the max of the scaled scores is the scaled max.  Every
+  // tile holds a valid key, so the new maxima are finite; on the first tile
+  // the old ones are -inf and a0 = a1 = 0.
+  const float n0 = fmaxf(m0, mx0 * sl2), n1 = fmaxf(m1, mx1 * sl2);
+  a0 = ex2(m0 - n0);
+  a1 = ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], sl2, -n0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -n0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -n1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -n1));
+  }
+}
+
+// P in bf16 as the A fragments of the PV product: adjacent accumulator pairs
+// are adjacent columns, so n-blocks 2kk and 2kk+1 of S are k-step kk of P.
+template <int BK>
+__device__ __forceinline__ void to_a_frags(const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * kk + h;
+      p[kk][2 * h] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      p[kk][2 * h + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int N, int M, float scale_log2) {
+  using T = Bf16Tiles<D>;
+  constexpr int BK = T::kKeys;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte aligned bases.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + T::kQBytes;
+  const uint32_t v_s = k_s + S * T::kTileBytes;
+  const uint32_t ones_s = v_s + S * T::kTileBytes;
+  const uint32_t bar = ones_s + T::kOnesBytes;  // q_full, then k_full[S], k_empty[S], v_full[S], v_empty[S]
+  const uint32_t q_full = bar;
+  auto k_full = [&](int st) { return bar + 8 * (1 + st); };
+  auto k_empty = [&](int st) { return bar + 8 * (1 + S + st); };
+  auto v_full = [&](int st) { return bar + 8 * (1 + 2 * S + st); };
+  auto v_empty = [&](int st) { return bar + 8 * (1 + 3 * S + st); };
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * T::kRowsQ;
+  const int n_tiles = (M + BK - 1) / BK;
+
+  {  // a tile of bf16 ones, the B operand of the denominator's product
+    uint32_t* ones = reinterpret_cast<uint32_t*>(smem + (ones_s - base));
+    for (int i = threadIdx.x; i < T::kOnesBytes / 4; i += T::kThreads) ones[i] = 0x3F803F80u;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 4 * T::kConsumers);  // lane 0 of each consumer warp
+      mbar_init(v_empty(st), 4 * T::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+      for (int x = 0; x < T::kBoxes; ++x) {
+        tma_load_3d(q_s + x * T::kRowsQ * T::kRowBytes, &tq, q_full, x * T::kBox, q0, b);
+      }
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(k_empty(st), phase ^ 1);
+        mbar_arrive_expect_tx(k_full(st), T::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x) {
+          tma_load_3d(k_s + st * T::kTileBytes + x * BK * T::kRowBytes, &tk, k_full(st), x * T::kBox,
+                      t * BK, b);
+        }
+        mbar_wait(v_empty(st), phase ^ 1);
+        mbar_arrive_expect_tx(v_full(st), T::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x) {
+          tma_load_3d(v_s + st * T::kTileBytes + x * BK * T::kRowBytes, &tv, v_full(st), x * T::kBox,
+                      t * BK, b);
+        }
+        if (++st == S) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 Q rows each ----
+    setmaxnreg_inc<T::kConsumerRegs>();
+    // Warp-uniform by construction (a shuffle from lane 0), so descriptors stay in uniform registers.
+    const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0) - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    constexpr int kSbo = 8 * T::kRowBytes;  // bytes between 8-row groups of a swizzled box
+
+    // S = Q K^T: one descriptor pair per 16-column k-step of D.
+    auto qk_issue = [&](float (&s)[BK / 2], int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int x = kk * 16 / T::kBox, col = (kk * 16) % T::kBox * 2;
+        const uint64_t da = make_desc(q_s + x * T::kRowsQ * T::kRowBytes + wg * 64 * T::kRowBytes + col,
+                                      16, kSbo, T::kSwizzle);
+        const uint64_t db =
+            make_desc(k_s + st * T::kTileBytes + x * BK * T::kRowBytes + col, 16, kSbo, T::kSwizzle);
+        wgmma_ss<BK>(s, da, db, kk > 0);
+      }
+    };
+    float o_acc[D / 2];
+    float l_acc[4];
+    // O += P V and l += P 1: V is MN-major (D contiguous); its 64-column boxes
+    // are kKeys * kRowBytes apart (the leading byte offset), 8-key groups kSbo.
+    auto pv_issue = [&](const uint32_t (&p)[BK / 16][4], int st) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = make_desc(v_s + st * T::kTileBytes + kk * 16 * T::kRowBytes,
+                                      BK * T::kRowBytes, kSbo, T::kSwizzle);
+        wgmma_rs<D>(o_acc, p[kk], dv);
+        wgmma_rs<8>(l_acc, p[kk], make_desc(ones_s, 128, 256, 0));
+      }
+    };
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 1.f;
-  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 1.f;
-  const int row_a = q0 + r0 + g;
-  const int row_b = row_a + 8;
-  __nv_bfloat16* ob = o + (size_t)b * N * D;
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int col = nd * 8 + tig * 2;
-    if (row_a < N) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_a * D + col) =
-          __floats2bfloat162_rn(acc[nd][0] * inv0, acc[nd][1] * inv0);
+    for (int i = 0; i < 4; ++i) l_acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, a0, a1;
+    const bool ragged = M % BK != 0;
+    const int last_valid = M - (n_tiles - 1) * BK;
+
+    float s[BK / 2];
+    uint32_t p[BK / 16][4];
+    // Scale O and l by the factor of the latest softmax (before P V adds the tile it belongs to).
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o_acc[4 * j] *= a0;
+        o_acc[4 * j + 1] *= a0;
+        o_acc[4 * j + 2] *= a1;
+        o_acc[4 * j + 3] *= a1;
+      }
+      l_acc[0] *= a0;
+      l_acc[1] *= a0;
+      l_acc[2] *= a1;
+      l_acc[3] *= a1;
+    };
+    mbar_wait(q_full, 0);
+
+    // Tile 0.
+    mbar_wait(k_full(0), 0);
+    fence_regs(s);
+    wgmma_fence();
+    qk_issue(s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(k_empty(0));
+    softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && n_tiles == 1, last_valid, t4);
+    to_a_frags<BK>(s, p);
+
+    // Tile t: issue S(t), then O += P(t-1) V(t-1); the softmax of S(t) runs
+    // while the PV product does, and P(t) is packed once it has retired.
+    int st = 0;  // stage of tile t - 1
+    uint32_t phase = 0;
+    for (int t = 1; t < n_tiles; ++t) {
+      const int nst = st + 1 == S ? 0 : st + 1;
+      const uint32_t nphase = nst == 0 ? phase ^ 1 : phase;
+      mbar_wait(k_full(nst), nphase);
+      // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
+      // 1 + wg is this warpgroup's turn, signalled by the other one).
+      if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+      fence_regs(s);
+      wgmma_fence();
+      qk_issue(s, nst);
+      wgmma_commit();
+      rescale();
+      mbar_wait(v_full(st), phase);
+      fence_regs(o_acc);
+      fence_regs(l_acc);
+      fence_regs(p);
+      wgmma_fence();
+      pv_issue(p, st);
+      wgmma_commit();
+      if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
+      wgmma_wait<1>();  // S of tile t is ready; P V of tile t - 1 may still run
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(k_empty(nst));
+      softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && t == n_tiles - 1, last_valid, t4);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      fence_regs(l_acc);
+      fence_regs(p);
+      if (lane == 0) mbar_arrive(v_empty(st));
+      to_a_frags<BK>(s, p);
+      st = nst;
+      phase = nphase;
     }
-    if (row_b < N) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_b * D + col) =
-          __floats2bfloat162_rn(acc[nd][2] * inv1, acc[nd][3] * inv1);
+    rescale();
+    mbar_wait(v_full(st), phase);
+    fence_regs(o_acc);
+    fence_regs(l_acc);
+    fence_regs(p);
+    wgmma_fence();
+    pv_issue(p, st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    fence_regs(l_acc);
+
+    // Epilogue: every column of the n8 accumulator holds the row sum.
+    const float l0 = l_acc[0], l1 = l_acc[2];
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+    const int row_a = q0 + wg * 64 + warp * 16 + g;
+    const int row_b = row_a + 8;
+    __nv_bfloat16* ob = o + (size_t)b * N * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + t4 * 2;
+      if (row_a < N) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_a * D + col) =
+            __floats2bfloat162_rn(o_acc[4 * j] * inv0, o_acc[4 * j + 1] * inv0);
+      }
+      if (row_b < N) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_b * D + col) =
+            __floats2bfloat162_rn(o_acc[4 * j + 2] * inv1, o_acc[4 * j + 3] * inv1);
+      }
     }
-  }
-  if (tig == 0) {
-    if (row_a < N) lse[(size_t)b * N + row_a] = m_run[0] * kLn2 + logf(fmaxf(l_run[0], 1e-37f));
-    if (row_b < N) lse[(size_t)b * N + row_b] = m_run[1] * kLn2 + logf(fmaxf(l_run[1], 1e-37f));
+    if (t4 == 0) {
+      if (row_a < N) lse[(size_t)b * N + row_a] = m0 * kLn2 + logf(fmaxf(l0, 1e-37f));
+      if (row_b < N) lse[(size_t)b * N + row_b] = m1 * kLn2 + logf(fmaxf(l1, 1e-37f));
+    }
   }
 }
 
@@ -303,17 +519,57 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function: fetched once through the
+// runtime, so the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 [batch, rows, D] tensor, read in boxes of
+// box_rows x box_cols (box_cols * 2 bytes is the swizzle width).
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int D, int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                         int N, int M, float scale_log2, cudaStream_t stream) {
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, B);
-  const size_t smem = (size_t)(kBlockQ + 64 + 64) * (D + 8) * sizeof(__nv_bfloat16);
-  const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, smem);
+  using T = Bf16Tiles<D>;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, B, N, D, T::kBox, T::kRowsQ) || !encode_map(&tk, k, B, M, D, T::kBox, T::kKeys) ||
+      !encode_map(&tv, v, B, M, D, T::kBox, T::kKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((N + T::kRowsQ - 1) / T::kRowsQ, B);
+  const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_bf16_kernel<D><<<grid, 128, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, N, M,
-      scale_log2);
+  flash_fwd_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, N, M, scale_log2);
   return cudaGetLastError();
 }
 
@@ -332,8 +588,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 
 }  // namespace
 
-// q [B,N,D], k and v [B,M,D], o [B,N,D] (all contiguous, same dtype), lse
-// [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32, 64 or 128.
+// q [B,N,D], k and v [B,M,D], o [B,N,D] (all contiguous, same dtype, 16-byte
+// aligned), lse [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32,
+// 64 or 128; the bf16 kernel takes scale > 0 only.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int N, int M, int D, int is_bf16,
@@ -343,6 +600,7 @@ extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
     switch (D) {
       case 32: return (int)launch_bf16<32>(q, k, v, o, l, B, N, M, sl2, st);
       case 64: return (int)launch_bf16<64>(q, k, v, o, l, B, N, M, sl2, st);

@@ -17,10 +17,12 @@ described in its source.
 
 On a CPU tensor each runs its plain version (``flash_attention_plain``,
 ``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
-(bf16 or float32, D in {32, 64, 128}) or raises.
+(bf16 or float32, D in {32, 64, 128}; the bf16 forward takes scale > 0) or
+raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -110,7 +112,31 @@ def _kernel_lib(name: str = "flash_attn_fwd", device: str = "cuda") -> ctypes.CD
     return lib
 
 
+_FNS: dict = {}  # C function name -> its ctypes function, resolved once
+
+
+def _kernel_fn(fn_name: str):
+    fn = _FNS.get(fn_name)
+    if fn is None:
+        lib = next(lib for lib, fns in _ENTRY_POINTS.items() if fn_name in fns)
+        fn = _FNS[fn_name] = getattr(_kernel_lib(lib), fn_name)
+    return fn
+
+
+def _device_ctx(device: torch.device):
+    """Make ``device`` current for a launch; no context switch when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _check_kernel_inputs(d: int, batch: int, **tensors: torch.Tensor) -> None:
+    """Raise on what the kernels cannot take.
+
+    The bf16 forward reads Q, K and V through TMA tensor maps, which need a
+    16-byte aligned base and contiguous rows; every kernel takes D in
+    ``KERNEL_HEAD_DIMS`` only.
+    """
     dtype = next(iter(tensors.values())).dtype
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernel takes bfloat16 or float32, got {dtype}")
@@ -130,11 +156,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     b, n, d = q.shape
     m = k.shape[1]
     _check_kernel_inputs(d, b, q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"the bf16 flash kernel takes scale > 0, got {scale}")
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_lib().mrisr_flash_attn_fwd(
+    with _device_ctx(q.device):
+        err = _kernel_fn("mrisr_flash_attn_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, n, m, d, KERNEL_DTYPES[q.dtype], float(scale), stream,
         )
@@ -178,8 +206,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tenso
     _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_lib("flash_attn_bwd").mrisr_flash_attn_bwd_dq(
+    with _device_ctx(q.device):
+        err = _kernel_fn("mrisr_flash_attn_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), stream,
         )
@@ -195,8 +223,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float) -> tuple[torc
     _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_lib("flash_attn_bwd").mrisr_flash_attn_bwd_dkv(
+    with _device_ctx(q.device):
+        err = _kernel_fn("mrisr_flash_attn_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), stream,
         )

@@ -227,6 +227,46 @@ def test_wrappers_reject_bad_input():
                                     torch.zeros(1, 8, 32), 1.0)
 
 
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous view one element into its storage: 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1 : n + 1].view(shape)
+
+
+_QKV = dict(q=(1, 8, 32), k=(1, 8, 32), v=(1, 8, 32))
+
+
+@pytest.mark.parametrize(
+    "case, make, error, match",
+    [
+        ("q_at_storage_offset", lambda: dict(q=_misaligned((1, 8, 32))), ValueError, "16-byte aligned q"),
+        ("v_at_storage_offset", lambda: dict(v=_misaligned((1, 8, 32))), ValueError, "16-byte aligned v"),
+        ("k_transposed", lambda: dict(k=torch.zeros(1, 32, 8, dtype=torch.bfloat16).transpose(1, 2)),
+         ValueError, "contiguous k"),
+        ("d_16", lambda: {n: torch.zeros(1, 8, 16, dtype=torch.bfloat16) for n in _QKV}, ValueError, "D in"),
+        ("d_48", lambda: {n: torch.zeros(1, 8, 48, dtype=torch.bfloat16) for n in _QKV}, ValueError, "D in"),
+        ("float16", lambda: {n: torch.zeros(s, dtype=torch.float16) for n, s in _QKV.items()}, TypeError,
+         "bfloat16 or float32"),
+    ],
+)
+def test_kernel_inputs_reject_what_the_kernels_cannot_take(case, make, error, match):
+    """The checks every kernel launch runs first, on CPU tensors: TMA needs 16-byte aligned,
+    contiguous rows, and the kernels exist for D in (32, 64, 128) only."""
+    tensors = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in _QKV.items()} | make()
+    with pytest.raises(error, match=match):
+        t_flash._check_kernel_inputs(tensors["q"].shape[2], 1, **tensors)
+    # The same tensors, aligned, contiguous and of a kernel's D and dtype, pass.
+    t_flash._check_kernel_inputs(32, 1, **{n: torch.zeros(s, dtype=torch.bfloat16) for n, s in _QKV.items()})
+
+
+def test_bf16_forward_kernel_takes_positive_scale_only():
+    """The bf16 kernel folds the scale into a row max of raw scores, so it must be > 0."""
+    q = torch.zeros(1, 8, 32, dtype=torch.bfloat16)
+    for scale in (0.0, -0.5, float("nan")):
+        with pytest.raises(ValueError, match="scale > 0"):
+            t_flash._launch(q, q, q, scale)
+
+
 # ---------------------------------------------------------------------------
 # Hygiene
 # ---------------------------------------------------------------------------
