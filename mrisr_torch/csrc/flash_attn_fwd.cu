@@ -29,10 +29,10 @@
 //     registers a thread and the consumers 240.  The TPU carried m/l/acc
 //     across a sequential grid axis; here the K/V loop runs inside the CTA.
 //     Three consumer warpgroups (192 rows, 160 registers) at D=32 were
-//     6-10 % slower (sweep).  At D=64 the 8x4096 grid is 256 CTAs, under two waves
-//     on 132 SMs; 264 CTAs (two full waves) take the same time (sweep), so
-//     smaller CTAs or a persistent tile loop could win at most the ~3 % of
-//     empty slots, and 128-row CTAs are kept.
+//     5-10 % slower (sweep).  At D=64 the 8x4096 grid is 256 CTAs, under
+//     two waves on 132 SMs; 264 CTAs (two full waves) take no less time
+//     (sweep), so the partly empty second wave costs nothing measurable and
+//     128-row CTAs are kept (no smaller CTAs, no persistent tile loop).
 //   * One elected producer thread loads Q once and K and V tiles of BK=128
 //     keys into a ring of kStages shared-memory stages with TMA
 //     (cp.async.bulk.tensor over 3-D tensor maps [B, rows, D], so the
@@ -41,19 +41,21 @@
 //     D=32 (64B swizzle), 128 bytes at D=64 (128B swizzle), and D=128 is two
 //     boxes of 64 columns (128B swizzle).  BK is 128 at every D: S (64
 //     registers) plus P (32) plus O (16-64) fit in 240; BK=256 at D=32 was
-//     22-27 % slower (sweep).
+//     22-30 % slower (sweep).
 //   * S = Q K^T with wgmma m64n128k16, both operands K-major shared-memory
 //     descriptors.  Per tile t a consumer issues S(t), rescales O, issues
 //     O += P(t-1) V(t-1), runs the softmax of S(t) while that product runs,
-//     and packs P(t) once it has retired.  Where the tensor cores are a
-//     bound (D >= 64) the two consumers take turns issuing on named
-//     barriers, so one's exponentials overlap the other's products (8 %
-//     faster at D=64, 7-11 % at D=128, but 2-3 % slower at D=32; sweep).
+//     and packs P(t) once it has retired.  At D=64 S(t+1) is issued too,
+//     into a second S buffer, before the softmax of tile t (8-17 % faster
+//     there; 0-4 % slower at D=32; no room at D=128; sweep).  At D=128 the
+//     two consumers take turns issuing on named barriers, so one's
+//     exponentials overlap the other's products (0-11 % faster; 0-3 %
+//     slower at D=32 and 4 % at D=64 with S issued ahead; sweep).
 //   * Softmax on the accumulators: the row max over raw scores (four
-//     independent chains, then two quad shuffles; one chain was 2-8 %
-//     slower at D=32; sweep), then each score is one FFMA (s * scale*log2(e) - m) and one
-//     ex2.approx.  Keys >= M are masked only in the last tile, and only when
-//     M % BK != 0.
+//     independent chains, then two quad shuffles; one chain was 2-12 %
+//     slower at D=32; sweep), then each score is one FFMA
+//     (s * scale*log2(e) - m) and one ex2.approx.  Keys >= M are masked
+//     only in the last tile, and only when M % BK != 0.
 //   * O += P V with the RS form: P leaves the S accumulators as bf16 A
 //     fragments by packing adjacent pairs (the accumulator and A-fragment
 //     layouts line up), and V is an MN-major B operand read with wgmma's
@@ -61,8 +63,8 @@
 //   * The denominator sums the bf16-rounded p, as the reference's V_AUG does,
 //     on the tensor cores: one wgmma m64n8k16 per k-step against a tile of
 //     ones in shared memory gives the row sums of P in fp32 with no
-//     per-score add (summing in registers was 39-47 % slower at D=32 and
-//     7-8 % at D=64; sweep).
+//     per-score add (summing in registers was 39-48 % slower at D=32 and
+//     0-8 % at D=64; sweep).
 //   * wgmma operands are pinned with fence_regs around each batch: a write
 //     to them that the compiler moves inside a batch makes ptxas serialize
 //     every wgmma of the kernel (notes C7511/C7513; chip_smoke.py's build
@@ -91,10 +93,12 @@ struct Bf16Tiles {
   static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
   static constexpr int kKeys = 128;                  // BK: keys per K/V tile
   static constexpr int kStages = D == 128 ? 2 : (D == 64 ? 3 : 4);
-  // The two consumer warpgroups take turns issuing their products (named
-  // barriers) where the tensor cores are a bound (D >= 64); at D=32 the
-  // exponentials are, and the turns cost more than they give.
-  static constexpr bool kPingPong = D >= 64;
+  // Measured per D (mrisr_torch/tools/flash_fwd_sweep.py): S(t+1) issued
+  // ahead of the softmax of tile t into a second S buffer (64 more registers
+  // a thread; no room at D=128) pays at D=64 only; the two consumer
+  // warpgroups taking turns on named barriers pays at D=128 only.
+  static constexpr bool kIssueAhead = D == 64;
+  static constexpr bool kPingPong = D == 128;
   static_assert(!kPingPong || kConsumers == 2, "turns are taken between two consumer warpgroups");
   static constexpr int kBox = D == 128 ? 64 : D;     // columns per TMA box
   static constexpr int kBoxes = D / kBox;
@@ -328,62 +332,141 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     };
     mbar_wait(q_full, 0);
 
-    // Tile 0.
-    mbar_wait(k_full(0), 0);
-    fence_regs(s);
-    wgmma_fence();
-    qk_issue(s, 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    if (lane == 0) mbar_arrive(k_empty(0));
-    softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && n_tiles == 1, last_valid, t4);
-    to_a_frags<BK>(s, p);
-
-    // Tile t: issue S(t), then O += P(t-1) V(t-1); the softmax of S(t) runs
-    // while the PV product does, and P(t) is packed once it has retired.
-    int st = 0;  // stage of tile t - 1
-    uint32_t phase = 0;
-    for (int t = 1; t < n_tiles; ++t) {
-      const int nst = st + 1 == S ? 0 : st + 1;
-      const uint32_t nphase = nst == 0 ? phase ^ 1 : phase;
-      mbar_wait(k_full(nst), nphase);
-      // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
-      // 1 + wg is this warpgroup's turn, signalled by the other one).
-      if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+    auto stage = [](int t) { return t % S; };
+    auto parity = [](int t) { return (uint32_t)((t / S) & 1); };
+    auto one_buffer = [&]() {  // one S buffer
+      // Tile 0.
+      mbar_wait(k_full(0), 0);
       fence_regs(s);
       wgmma_fence();
-      qk_issue(s, nst);
+      qk_issue(s, 0);
       wgmma_commit();
-      rescale();
-      mbar_wait(v_full(st), phase);
-      fence_regs(o_acc);
-      fence_regs(l_acc);
-      fence_regs(p);
-      wgmma_fence();
-      pv_issue(p, st);
-      wgmma_commit();
-      if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
-      wgmma_wait<1>();  // S of tile t is ready; P V of tile t - 1 may still run
-      fence_regs(s);
-      if (lane == 0) mbar_arrive(k_empty(nst));
-      softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && t == n_tiles - 1, last_valid, t4);
       wgmma_wait<0>();
-      fence_regs(o_acc);
-      fence_regs(l_acc);
-      fence_regs(p);
-      if (lane == 0) mbar_arrive(v_empty(st));
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(k_empty(0));
+      softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && n_tiles == 1, last_valid, t4);
       to_a_frags<BK>(s, p);
-      st = nst;
-      phase = nphase;
+
+      // Tile t: issue S(t), then O += P(t-1) V(t-1); the softmax of S(t) runs
+      // while the PV product does, and P(t) is packed once it has retired.
+      for (int t = 1; t < n_tiles; ++t) {
+        mbar_wait(k_full(stage(t)), parity(t));
+        // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
+        // 1 + wg is this warpgroup's turn, signalled by the other one).
+        if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+        fence_regs(s);
+        wgmma_fence();
+        qk_issue(s, stage(t));
+        wgmma_commit();
+        rescale();
+        mbar_wait(v_full(stage(t - 1)), parity(t - 1));
+        fence_regs(o_acc);
+        fence_regs(l_acc);
+        fence_regs(p);
+        wgmma_fence();
+        pv_issue(p, stage(t - 1));
+        wgmma_commit();
+        if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
+        wgmma_wait<1>();  // S of tile t is ready; P V of tile t - 1 may still run
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(k_empty(stage(t)));
+        softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && t == n_tiles - 1, last_valid, t4);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(l_acc);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(v_empty(stage(t - 1)));
+        to_a_frags<BK>(s, p);
+      }
+    };
+    if constexpr (T::kIssueAhead) {
+      // Two S buffers: S(t+1) is issued before the softmax of tile t, so its
+      // latency hides behind the exponentials as well.  Every wgmma group is
+      // issued and waited for on a path fixed at compile time (ptxas
+      // serializes the pipeline when a group may or may not exist), so a
+      // single tile takes the one-buffer path and the last tile its own step.
+      if (n_tiles == 1) {
+        one_buffer();
+      } else {
+        float s2[BK / 2];
+        mbar_wait(k_full(0), 0);
+        mbar_wait(k_full(stage(1)), parity(1));
+        fence_regs(s);
+        fence_regs(s2);
+        wgmma_fence();
+        qk_issue(s, 0);
+        wgmma_commit();
+        qk_issue(s2, stage(1));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(k_empty(0));
+        softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, false, last_valid, t4);
+        to_a_frags<BK>(s, p);
+
+        // Tile t, its S already issued into cur: issue O += P(t-1) V(t-1)
+        // and (ahead) S(t+1) into nxt, run the softmax of S(t) while both
+        // run, pack P(t) once the PV product has retired.  `ahead` is false
+        // on the last tile only and a literal at every call, so each
+        // inlined step is straight-line code.
+        auto step = [&](int t, float (&cur)[BK / 2], float (&nxt)[BK / 2], bool ahead) {
+          rescale();
+          mbar_wait(v_full(stage(t - 1)), parity(t - 1));
+          if (ahead) mbar_wait(k_full(stage(t + 1)), parity(t + 1));
+          if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+          fence_regs(o_acc);
+          fence_regs(l_acc);
+          fence_regs(p);
+          fence_regs(nxt);
+          wgmma_fence();
+          pv_issue(p, stage(t - 1));
+          wgmma_commit();
+          if (ahead) {
+            qk_issue(nxt, stage(t + 1));
+            wgmma_commit();
+          }
+          if (T::kPingPong && !(wg == 1 && !ahead)) named_bar_arrive(2 - wg, 256);
+          if (ahead) {  // S(t) is ready
+            wgmma_wait<2>();
+          } else {
+            wgmma_wait<1>();
+          }
+          fence_regs(cur);
+          if (lane == 0) mbar_arrive(k_empty(stage(t)));
+          softmax_tile<BK>(cur, m0, m1, a0, a1, scale_log2, ragged && !ahead, last_valid, t4);
+          if (ahead) {  // P(t-1) V(t-1) has retired
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_regs(o_acc);
+          fence_regs(l_acc);
+          fence_regs(p);
+          if (lane == 0) mbar_arrive(v_empty(stage(t - 1)));
+          to_a_frags<BK>(cur, p);
+        };
+        int t = 1;
+        for (; t + 2 < n_tiles; t += 2) {
+          step(t, s2, s, true);
+          step(t + 1, s, s2, true);
+        }
+        if (t + 1 < n_tiles) {
+          step(t, s2, s, true);
+          step(t + 1, s, s2, false);
+        } else {
+          step(t, s2, s, false);
+        }
+      }
+    } else {
+      one_buffer();
     }
     rescale();
-    mbar_wait(v_full(st), phase);
+    mbar_wait(v_full(stage(n_tiles - 1)), parity(n_tiles - 1));
     fence_regs(o_acc);
     fence_regs(l_acc);
     fence_regs(p);
     wgmma_fence();
-    pv_issue(p, st);
+    pv_issue(p, stage(n_tiles - 1));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o_acc);

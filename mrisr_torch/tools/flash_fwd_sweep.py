@@ -12,7 +12,10 @@ Variants:
 
 * ``design``: the source as it is;
 * ``pingpong_all`` / ``pingpong_none``: the two consumer warpgroups take
-  turns on named barriers at every D / at none (the design: D >= 64);
+  turns on named barriers at every D / at none (the design: D=128);
+* ``issue_ahead_d32`` / ``issue_ahead_none``: S(t+1) issued before the
+  softmax of tile t into a second S buffer at D=32 too / at no D (the
+  design: D=64);
 * ``consumers3_d32``: three consumer warpgroups (192 Q rows a CTA, 160
   registers a consumer thread) at D=32;
 * ``keys256_d32``: BK = 256 keys per tile at D=32 (wgmma m64n256k16 for S);
@@ -73,8 +76,10 @@ _MAX_TREE_BLOCK = """  float c0[4], c1[4];
 """
 VARIANTS = {
     "design": [],
-    "pingpong_all": [("kPingPong = D >= 64;", "kPingPong = true;")],
-    "pingpong_none": [("kPingPong = D >= 64;", "kPingPong = false;")],
+    "pingpong_all": [("kPingPong = D == 128;", "kPingPong = true;")],
+    "pingpong_none": [("kPingPong = D == 128;", "kPingPong = false;")],
+    "issue_ahead_d32": [("kIssueAhead = D == 64;", "kIssueAhead = D <= 64;")],
+    "issue_ahead_none": [("kIssueAhead = D == 64;", "kIssueAhead = false;")],
     "consumers3_d32": [("static constexpr int kConsumers = 2;", "static constexpr int kConsumers = D == 32 ? 3 : 2;")],
     "keys256_d32": [("static constexpr int kKeys = 128;", "static constexpr int kKeys = D == 32 ? 256 : 128;")],
     "l_in_registers": [
