@@ -67,8 +67,8 @@
 //     0-8 % at D=64; sweep).
 //   * wgmma operands are pinned with fence_regs around each batch: a write
 //     to them that the compiler moves inside a batch makes ptxas serialize
-//     every wgmma of the kernel (notes C7511/C7513; chip_smoke.py's build
-//     phase fails on them).
+//     every wgmma of the kernel (notes C7511/C7513/C7515; chip_smoke.py's
+//     build phase fails on them).
 //   * Epilogue: O / l in bf16 and lse = m ln2 + ln l, rows past N not stored.
 //   * fp32: plain FMA (no TF32), 4 threads per Q row, each owning a quarter
 //     of D; K/V tiles of 32 rows in shared memory, 16 keys per softmax update.
