@@ -10,16 +10,18 @@ result.  Each phase prints JSON lines:
 
 1. ``device``: the card, and its name and power limit from nvidia-smi;
 2. ``build``: seconds to build the kernels, the ptxas register report (no
-   spills, and no serialized wgmma pipeline in the forward), and the HGMMA
-   (wgmma) instruction count of each bf16 forward kernel from
-   ``cuobjdump -sass`` (none may be 0);
+   spills, and no serialized wgmma pipeline -- ptxas's "Performance Loss"
+   notes -- in either CUDA library), and the HGMMA (wgmma) instruction count
+   of each bf16 forward, dQ and dK/dV kernel from ``cuobjdump -sass`` (none
+   may be 0);
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the main paths' shapes, in bf16 and fp32 (plus ragged shapes), with its
-   time beside its bound, the plain version's time and one PyTorch library
-   call's time (timed only; the port never calls it); for the forward also
-   the kernel's own device time (``torch.profiler``) and the wrapper's host
-   microseconds per call; and gradients through
-   the autograd function against the direct backward call;
+   the main paths' shapes, in bf16 and fp32 (plus ragged shapes, and ragged
+   shapes where every score is below -100), with its time beside its bound,
+   the plain version's time and one PyTorch library call's time (timed only;
+   the port never calls it); for the flash kernels also the kernel's own
+   device time (``torch.profiler``) and the wrapper's host microseconds per
+   call; the backward's results bitwise equal over two calls; and gradients
+   through the autograd function against the direct backward call;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
    through ``ResDiffPipeline.super_resolve``, in the fast (ca_kv_pool=8) and
    exact (ca_kv_pool=0) profiles, with the kernels' launch counts checked,
@@ -65,6 +67,10 @@ FLASH_CASES = [  # (case, B, N, M, D): the chain's two flash sites, both profile
 FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ragged", 3, 130, 70, 128),
                 # fewer queries than one CTA and keys than one tile; keys ending mid-tile at B >= 2, D=64
                 ("ragged", 2, 37, 5, 32), ("ragged", 2, 300, 1000, 64)]
+# Ragged shapes where every score is below -100 (extreme_qk): a zero key past
+# M would score 0 and get p = exp(-lse), which overflows.
+FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32)]
+EXTREME_MEAN_SCORE, EXTREME_NOISE = -130.0, 2.0
 GN_CASES = [  # (case, shape, groups): the chain's largest and smallest ConvBlock heads
     ("largest", (BATCH, 96, 256, 256), 16),
     ("smallest", (BATCH, 128, 32, 32), 16),
@@ -134,7 +140,8 @@ def cuda_ms(torch, fn, min_total_ms=200.0, max_iters=50):
 
 
 def device_ms(torch, fn, kernel_part, iters=20, attempts=3):
-    """Mean device time per call of the kernels whose name holds ``kernel_part``, from ``torch.profiler``.
+    """Mean device time per call of the kernels whose name holds ``kernel_part``, from ``torch.profiler``;
+    with ``kernel_part=None``, of every device event a call makes (each makes at least one).
 
     The tracer may miss launches at the start of a window, or a whole window;
     a window counts when it saw most of the calls.  None when no attempt did.
@@ -149,8 +156,11 @@ def device_ms(torch, fn, kernel_part, iters=20, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel_part in e.key]
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and (kernel_part is None or kernel_part in e.key)]
         count = sum(e.count for e in events)
+        if kernel_part is None and count >= iters:
+            return sum(e.device_time_total for e in events) / iters / 1e3
         if iters // 2 <= count <= iters:
             return sum(e.device_time_total for e in events) / count / 1e3
     return None
@@ -185,10 +195,32 @@ def phase_device(torch):
     return smi
 
 
+def extreme_qk(q, k):
+    """``q``, ``k`` ([..., D] float tensors of unit noise) moved so that every score ``q.k / sqrt(D)`` is
+    about ``EXTREME_MEAN_SCORE``: the noise, centred over D and scaled by ``EXTREME_NOISE``, plus ``+h``
+    and ``-h`` in every coordinate.  Centred noise is orthogonal to the shift, so the shift adds the same
+    -h^2 D / sqrt(D) to every score and leaves a spread of about ``EXTREME_NOISE**2`` around it."""
+    d = q.shape[-1]
+    h = math.sqrt(-EXTREME_MEAN_SCORE / math.sqrt(d))
+    centred = [EXTREME_NOISE * (t - t.mean(dim=-1, keepdim=True)) for t in (q, k)]
+    return centred[0] + h, centred[1] - h
+
+
+def kernel_name(mangled):
+    """``flash_{fwd,bwd}_<...>_kernel<D>`` from a mangled flash kernel name, else the name as given.
+
+    The kernels sit in an anonymous namespace, which nvcc names after the source file
+    (``..._flash_attn_bwd_cu_e9fa0b7425flash_bwd_dq_bf16_kernelILi32EE...``): the name starts at the
+    first ``flash_fwd_`` or ``flash_bwd_``."""
+    import re
+
+    m = re.search(r"(flash_(?:fwd|bwd)_[a-z0-9_]*?kernel)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
 def sass_counts(so_path, opcode):
     """Instructions with ``opcode`` in each kernel of a built library, from ``cuobjdump -sass``."""
     import os
-    import re
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True, text=True, timeout=300,
@@ -196,9 +228,7 @@ def sass_counts(so_path, opcode):
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            m = re.search(r"(flash_[a-z0-9]+_[a-z0-9]+_kernel)ILi(\d+)E", mangled)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else mangled
+            name = kernel_name(line.split("Function :")[1].strip())
             counts[name] = 0
         elif name is not None and opcode in line:
             counts[name] += 1
@@ -219,24 +249,34 @@ def phase_build(torch):
     ptxas = {name: _build.ptxas_report(name) for name in flash_attention.LIBRARIES}
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
-    # The bf16 forward is built on wgmma: its SASS must hold HGMMA instructions.
-    hgmma = {k: n for k, n in sass_counts(_build.build_dir() / "libflash_attn_fwd.so", "HGMMA").items()
-             if "bf16" in k}
+    # The bf16 forward, dQ and dK/dV kernels (D = 32, 64, 128 each) are built
+    # on wgmma: the SASS of each must hold HGMMA instructions.
+    hgmma = {k: n for lib in flash_attention.LIBRARIES
+             for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items() if "bf16" in k}
     emit({"phase": "build", "flash_attn_nvcc_s": t1 - t0, "sources": list(flash_attention.LIBRARIES),
           "group_norm_silu_triton_s": t2 - t1, "triton": triton.__version__,
-          "kernels_with_spills": spills, "flash_fwd_bf16_hgmma": hgmma, "ptxas": ptxas})
+          "kernels_with_spills": spills, "flash_bf16_hgmma": hgmma, "ptxas": ptxas})
     # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
-    serialized = [ln for ln in ptxas["flash_attn_fwd"] if "Performance Loss" in ln]
-    if len(hgmma) != 3 or not all(hgmma.values()) or any(spills.values()) or serialized:
-        raise AssertionError(f"build: bf16 forward HGMMA counts {hgmma}, kernels with spills {spills}, "
+    serialized = [ln for lines in ptxas.values() for ln in lines if "Performance Loss" in ln]
+    if len(hgmma) != 9 or not all(hgmma.values()) or any(spills.values()) or serialized:
+        raise AssertionError(f"build: bf16 HGMMA counts {hgmma}, kernels with spills {spills}, "
                              f"ptxas performance notes {serialized}")
+
+
+def flash_inputs(torch, dtype, case, seed, sizes, d):
+    """Unit normal ``[b, s, d]`` tensors (``sizes`` gives ``(b, s)`` of each, q and k first) in ``dtype``;
+    for the extreme cases q and k go through :func:`extreme_qk` first."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ts = [torch.randn((b, s, d), generator=gen, device="cuda") for b, s in sizes]
+    if case == "extreme":
+        ts[0], ts[1] = extreme_qk(ts[0], ts[1])
+    return [t.to(dtype) for t in ts]
 
 
 def check_flash(torch, F, dtype, case, b, n, m, d, timed):
     from mrisr_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(b * 7 + n + m + d)
-    q, k, v = (torch.randn((b, s, d), generator=gen, device="cuda").to(dtype) for s in (n, m, m))
+    q, k, v = flash_inputs(torch, dtype, case, b * 7 + n + m + d, [(b, n), (b, m), (b, m)], d)
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
     ro, rlse = fa.flash_attention_plain(q, k, v, scale)
@@ -282,16 +322,18 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
     """dQ and dK/dV through ``flash_attention_bwd`` against ``flash_attention_bwd_plain``."""
     from mrisr_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(b * 11 + n + m + d)
-    q, k, v, do = (torch.randn((b, s, d), generator=gen, device="cuda").to(dtype) for s in (n, m, m, n))
+    q, k, v, do = flash_inputs(torch, dtype, case, b * 11 + n + m + d, [(b, n), (b, m), (b, m), (b, n)], d)
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    # No atomics: each block writes only the rows it owns, so a second call gives the same bits.
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
     torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b_) for a, b_ in zip(got, again))
     name = str(dtype).split(".")[-1]
     tol = FLASH_BWD_TOL[name]
-    errs, ok = {}, True
+    errs, ok = {}, deterministic
     for key, g, w in zip(("dq", "dk", "dv"), got, want):
         ref = w.float()
         rms_ref = float(ref.square().mean().sqrt())
@@ -301,7 +343,8 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
                      "ref_rms": rms_ref, "rms_err_rel": float(err.square().mean().sqrt()) / rms_ref}
         ok = (ok and bool(torch.isfinite(g).all()) and errs[key]["err_over_limit"] <= 1.0
               and errs[key]["rms_err_rel"] <= tol["rms_rel"])
-    base = {"phase": "kernel", "case": case, "dtype": name, "shape": [b, n, m, d], "tolerance": tol, "ok": ok}
+    base = {"phase": "kernel", "case": case, "dtype": name, "shape": [b, n, m, d], "tolerance": tol,
+            "deterministic": deterministic, "ok": ok}
     recs = {"flash_attention_bwd_dq": {**base, "kernel": "flash_attention_bwd_dq", "errors": {"dq": errs["dq"]},
                                        "max_abs_err": errs["dq"]["max_abs_err"]},
             "flash_attention_bwd_dkv": {**base, "kernel": "flash_attention_bwd_dkv",
@@ -317,19 +360,27 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
             (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, peak)
         dkv_rec["bound_ms"], dkv_rec["bound_by"] = bound(
             (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, peak)
-        dq_rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale))
-        dkv_rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
-        pair_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale))
+        run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)  # noqa: E731
+        run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)  # noqa: E731
+        for rec, run, kernel_part in ((dq_rec, run_dq, "flash_bwd_dq"), (dkv_rec, run_dkv, "flash_bwd_dkv")):
+            rec["ms"] = cuda_ms(torch, run)
+            rec["device_ms"] = device_ms(torch, run, kernel_part)
+            rec["host_us"] = host_us(torch, run)
+        run_pair = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
         # The plain version and the library call compute dq, dk and dv in one
         # pass: their times are those of the whole backward, on both records.
+        # So is the pair's (delta, dQ, dK/dV): the device times compare them
+        # without the wrappers' host time.
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale), max_iters=5)
         q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (q, k, v))
         out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-        library_ms = cuda_ms(
-            torch, lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None], retain_graph=True), max_iters=10)
+        run_library = lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None], retain_graph=True)  # noqa: E731
+        pair = {"pair_ms": cuda_ms(torch, run_pair), "pair_device_ms": device_ms(torch, run_pair, None),
+                "plain_ms": plain_ms, "library_ms": cuda_ms(torch, run_library, max_iters=10),
+                "library_device_ms": device_ms(torch, run_library, None, iters=10)}
         for rec in (dq_rec, dkv_rec):
-            rec.update(exp_floor_ms=b * n * m / PEAK_EXPS * 1e3, pair_ms=pair_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, plain_and_library_cover="dq, dk and dv together")
+            rec.update(exp_floor_ms=b * n * m / PEAK_EXPS * 1e3, **pair,
+                       plain_and_library_cover="dq, dk and dv together")
     for rec in recs.values():
         emit(rec)
     if not ok:
@@ -401,7 +452,7 @@ def phase_kernels(torch):
     recs = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
             "group_norm_silu": []}
     for dtype in (torch.bfloat16, torch.float32):
-        for cases, timed in ((FLASH_CASES, True), (FLASH_RAGGED, False)):
+        for cases, timed in ((FLASH_CASES, True), (FLASH_RAGGED, False), (FLASH_EXTREME, False)):
             for case in cases:
                 recs["flash_attention_fwd"].append(check_flash(torch, F, dtype, *case, timed=timed))
                 for name, rec in check_flash_bwd(torch, F, dtype, *case, timed=timed).items():

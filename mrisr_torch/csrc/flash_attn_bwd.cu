@@ -19,303 +19,620 @@
 // at the 128^2 skip: B=8, N=M=16384, D=32.  The dQ kernel does three products
 // (6 B N M D = 0.41 TFLOP: 0.42 ms bf16, 6.2 ms fp32), the dK/dV kernel four
 // (8 B N M D = 0.55 TFLOP: 0.56 ms bf16, 8.2 ms fp32); each recomputes
-// B N M = 2.1 G exponentials (about 0.6 ms at ~3.7 T/s), which at D=32 is
-// the higher floor in bf16.  Bytes are ~50 MB a kernel (15 us).
+// B N M = 2.1 G exponentials (about 0.58 ms at the 16 per clock per SM of the
+// special-function units), which at D=32 is the higher floor in bf16.  Bytes
+// are ~50 MB a kernel (15 us).
 //
-// Design (simple and right first; wgmma, TMA and a fused one-pass backward
-// are later work):
-//   * The TPU kernels carried their accumulators in VMEM scratch across a
-//     sequential grid axis.  Hopper blocks run in no order, so the reduction
-//     loop runs inside the block: the dQ kernel owns 64 Q rows and loops over
-//     K/V tiles, the dK/dV kernel owns 64 K/V rows and loops over Q tiles.
-//     No atomics: a result does not depend on the order of the blocks.
-//   * bf16: 4 warps, 16 owned rows each; mma.sync m16n8k16 with fp32
-//     accumulators, which stay in registers.  The dK/dV kernel works on the
-//     transposed tile (S^T = K Q^T), so that P^T and dS^T come out of the
-//     accumulators already laid out as the A operand of the next product.
-//     The tile walked over has 64 rows (32 at D=128, to bound registers).
-//     The reference casts dO and V to fp32 for dP and keeps P^T in fp32 for
-//     dV; here all products take bf16 operands (dO, V as given; P and dS
-//     rounded to bf16, 2^-9 relative) with fp32 accumulation.  The effect is
-//     a relative error of a few 1e-3 in each gradient, the same order as the
-//     bf16 rounding of the outputs themselves.
-//   * P is recomputed against the lse of this package's forward kernel, with
-//     the same folding of scale * log2(e) into one exp2.  In bf16 that
-//     forward sums bf16-rounded p into its denominator, so sum_j P_ij here is
-//     1 only to ~2^-9: the reference has the same mismatch and accepts it at
-//     bf16 tolerance.  In fp32 the pair is consistent to rounding.
-//   * fp32: plain FMA (no TF32), 4 threads per owned row, each holding a
-//     quarter of D; the tile walked over has 32 rows in shared memory.
-//   * Ragged N and M: tiles are zero-filled past the end and rows past the
-//     end are not stored.  bf16: keys past M get probability 0 in the dQ
-//     kernel, queries past N get lse = +inf (probability 0) in the dK/dV
-//     kernel.  fp32: the inner loop stops at the last valid row of the tile.
+// The TPU kernels carried their accumulators in VMEM scratch across a
+// sequential grid axis.  Hopper blocks run in no order, so the reduction loop
+// runs inside the block: the dQ kernel owns Q rows and loops over K/V tiles,
+// the dK/dV kernel owns K/V rows and loops over Q tiles.  No atomics: each
+// block writes only the rows it owns, so two calls on the same inputs give
+// bitwise-equal results.
+//
+// bf16 design (FlashAttention-3's shape, in raw PTX: hopper.cuh, the forward's
+// building blocks).  Choices marked (sweep) were timed against the
+// alternative named, in turns on one H100, by
+// mrisr_torch/tools/flash_bwd_sweep.py (numbers in PERF.md).
+//   * One CTA per (batch, 128 owned rows): a producer warpgroup (setmaxnreg
+//     24) and two consumer warpgroups of 64 owned rows each (240 registers a
+//     thread).  The producer's first thread loads the owned tiles once and
+//     streams the walked-over tiles through a ring of shared-memory stages
+//     with TMA (3-D tensor maps [B, rows, D], zero fill past the last row per
+//     batch), each stage with a full and an empty mbarrier.  Rows are 64
+//     bytes at D=32 (64B swizzle), 128 at D=64 (128B), two 64-column boxes at
+//     D=128; every tile base is 1024-byte aligned.
+//   * dK/dV (B2b) owns K and V and walks Q, dO in tiles of BQ=64 queries (32
+//     at D=128).  Per tile a consumer computes the transposed scores
+//     S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16 (both operands
+//     K-major: K and V act as the forward's Q, Q and dO as its K), then P^T
+//     and dS^T in the accumulators, packs both to bf16 A fragments (the
+//     accumulator and A-fragment layouts line up), and issues dV += P^T dO
+//     and dK += dS^T Q with the RS form, where dO and Q are MN-major B
+//     operands read with wgmma's transpose bit: the same shared-memory tiles
+//     serve both products, no second copy.  lse*log2(e) and delta of a
+//     stage's queries are copied beside the stage by the producer's first
+//     warp with plain loads (a [B, N] fp32 row is no TMA row for ragged N:
+//     its stride N*4 bytes need not be a multiple of 16), bounds-checked:
+//     queries past N get lse = +inf, so P = 0.
+//   * dQ (B2a) has the forward's shape: it owns Q and dO (loaded once) and
+//     walks K/V tiles of BK=128 keys (64 at D=128) through the forward's
+//     ring.  Per tile a consumer computes S = Q K^T and dP = dO V^T (wgmma
+//     m64n128k16 SS, the forward's S descriptors), dS = P (dP - delta) in
+//     the accumulators, and issues dQ += dS K with the RS form, K read
+//     MN-major from the same stage (the forward's V descriptor).  lse and
+//     delta of the thread's two rows live in registers.  Keys past M (zero
+//     rows of the last tile) get dS = 0 explicitly, on the last tile and
+//     only when M % BK != 0: a zero key has score 0, and exp2(-lse)
+//     overflows where every real score is very negative.
+//   * Tiles at D=128: S and dP take BK/2 registers a thread each and dK, dV
+//     (or dQ) D/2 each; with BK=128 in dQ or BQ=64 in dK/dV ptxas runs out
+//     of registers and serializes the wgmmas (C7512, with spills): 2.0-2.2x
+//     and 1.7-1.9x slower than BK=64 and BQ=32 (sweep).  At D=32 and 64,
+//     BK=64 in dQ was 2-27 % slower and BQ=128 in dK/dV (one score buffer,
+//     C7512) 13-29 % slower at D=32; three consumer warpgroups in dK/dV at
+//     D=32 (192 rows a CTA, 160 registers) -1 to 6 % slower (sweep).
+//   * Pipeline, per consumer (the forward's one-buffer order): issue the
+//     score pair of tile t, then the second-stage products of tile t-1; the
+//     exponentials of tile t run while those products do, and P/dS of tile t
+//     are packed once they have retired.  A stage is released when its last
+//     product has retired (dQ: V after the score pair, K after dQ).  dQ's
+//     last tile takes its own step, so the loop carries no key mask (as
+//     selects on every tile it cost 137 of 580 instructions a loop; 1-13 %
+//     slower at D=64, 1-6 % at D=128; sweep).  The two consumers take turns
+//     issuing on named barriers: dQ 4-24 % faster at every D, dK/dV 13-27 %
+//     at D=128 and within noise (-4 to 9 %) at D=32 and 64 (sweep).  dK/dV
+//     at D=32 issues the score pair of tile t+1 ahead of the exponentials of
+//     tile t, into a second pair of score buffers: -3 to 7 %, within noise;
+//     at D=64 there is no room for it (C7512, 50 % slower; sweep).
+//   * The bf16 packing of P and dS stays on cvt: rounding on the FP32 pipe
+//     instead (Veltkamp's split and a byte permute), so that cvt does not
+//     compete with ex2 for a shared unit, was nowhere faster and up to 30 %
+//     slower (sweep): what limits these kernels is not the conversions.
+//   * wgmma operands are pinned with fence_regs around each batch and every
+//     wgmma group is issued on a path fixed at compile time (ptxas serializes
+//     the pipeline otherwise: notes C7511/C7513/C7515).
+//   * Numerics: every product takes bf16 operands (dO, V as given; P and dS
+//     rounded to bf16, 2^-9 relative) with fp32 accumulation.  The reference
+//     casts dO and V to fp32 for dP and keeps P^T in fp32 for dV; the effect
+//     is a relative error of a few 1e-3 in each gradient, the order of the
+//     bf16 rounding of the outputs themselves.  P is recomputed against the
+//     lse of this package's forward kernel, with scale * log2(e) folded into
+//     one exp2.  In bf16 that forward sums bf16-rounded p into its
+//     denominator, so sum_j P_ij here is 1 only to ~2^-9: the reference has
+//     the same mismatch and accepts it at bf16 tolerance.
+//   * fp32: plain FMA (no TF32), 64 owned rows a block, 4 threads per owned
+//     row, each holding a quarter of D; the tile walked over has 32 rows in
+//     shared memory and the inner loop stops at its last valid row.  In fp32
+//     the pair with the forward is consistent to rounding.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockRows = 64;  // rows owned by a block (Q rows for dQ, K/V rows for dK/dV)
+constexpr int kBlockRows = 64;  // rows owned by a block of the fp32 kernels
 
-// A fragment (16 rows x 16 columns at column kd*16) of a shared-memory tile.
-template <int LD>
-__device__ __forceinline__ void load_a_frag(uint32_t a[4], const __nv_bfloat16* tile, int row0,
-                                            int kd, int g, int tig) {
-  const __nv_bfloat16* base = tile + (row0 + g) * LD + kd * 16 + tig * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-}
+// Tile table of the bf16 dQ kernel (B2a), per head dimension D.
+template <int D>
+struct DqTiles : SwizzledRows<D> {
+  static constexpr int kConsumers = 2;               // consumer warpgroups, 64 Q rows each
+  static constexpr int kRowsQ = 64 * kConsumers;     // Q (dO, dQ) rows per CTA
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  // BK: keys per K/V tile.  S and dP take BK/2 registers a thread each, dQ
+  // D/2: at D=128 BK=128 leaves ptxas too few and it serializes the wgmmas.
+  static constexpr int kKeys = D == 128 ? 64 : 128;
+  static constexpr int kStages = D == 32 ? 4 : (kKeys * D < 128 * 128 ? 3 : 2);
+  // The two consumer warpgroups take turns issuing on named barriers.
+  static constexpr bool kPingPong = true;
+  static constexpr int kQBytes = kRowsQ * D * 2;     // Q, and dO
+  static constexpr int kTileBytes = kKeys * D * 2;   // one K (or V) stage
+  static constexpr int kBarBytes = 8 + KvRing<kStages>::kBarBytes;
+  // Shared memory: Q, dO, K stages, V stages, barriers, plus slack to align the base to 1024.
+  static constexpr int kSmemBytes = 2 * kQBytes + 2 * kStages * kTileBytes + kBarBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
 
-// acc[ND] (16 x D) += A (16 x 16*KK, as packed fragments) * T, where T is a
-// [16*KK, D] row-major shared-memory tile: its B fragments pair two
-// consecutive rows of one column, gathered with 16-bit loads.
-template <int ND, int KK, int LD>
-__device__ __forceinline__ void mma_a_tile(float acc[][4], uint32_t a[][4],
-                                           const uint16_t* tile16, int g, int tig) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const int r = kk * 16 + tig * 2;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int col = nd * 8 + g;
-      const uint32_t b0 =
-          (uint32_t)tile16[r * LD + col] | ((uint32_t)tile16[(r + 1) * LD + col] << 16);
-      const uint32_t b1 =
-          (uint32_t)tile16[(r + 8) * LD + col] | ((uint32_t)tile16[(r + 9) * LD + col] << 16);
-      mma_bf16_16816(acc[nd], a[kk], b0, b1);
-    }
-  }
-}
-
-// Pack a 16 x (8*NS) fp32 accumulator tile into bf16 A fragments.
-template <int NS>
-__device__ __forceinline__ void pack_a(uint32_t a[][4], float s[][4]) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    a[j >> 1][(j & 1) * 2 + 0] = bf162_bits(__floats2bfloat162_rn(s[j][0], s[j][1]));
-    a[j >> 1][(j & 1) * 2 + 1] = bf162_bits(__floats2bfloat162_rn(s[j][2], s[j][3]));
-  }
-}
+// Tile table of the bf16 dK/dV kernel (B2b), per head dimension D.
+template <int D>
+struct DkvTiles : SwizzledRows<D> {
+  static constexpr int kConsumers = 2;               // consumer warpgroups, 64 K/V rows each
+  static constexpr int kRowsKV = 64 * kConsumers;    // K/V (dK/dV) rows per CTA
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // Registers a thread after setmaxnreg: the producer gives up what the
+  // consumers take, from the 65536 / kThreads each starts with.
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  // BQ: queries per Q/dO tile.  S^T and dP^T take BQ/2 registers a thread
+  // each, dK and dV D/2 each: at D=128 BQ=64 leaves ptxas too few.
+  static constexpr int kQueries = D == 128 ? 32 : 64;
+  static constexpr int kStages = 4;
+  // The pair of tile t+1 issued ahead of the exponentials of tile t, into a
+  // second pair of score buffers (BQ more registers a thread).
+  static constexpr bool kIssueAhead = D == 32;
+  // The two consumer warpgroups take turns issuing on named barriers.
+  static constexpr bool kPingPong = true;
+  static_assert(!kPingPong || kConsumers == 2, "turns are taken between two consumer warpgroups");
+  static constexpr int kKVBytes = kRowsKV * D * 2;   // K, and V
+  static constexpr int kTileBytes = kQueries * D * 2;  // one Q (or dO) stage
+  static constexpr int kVecBytes = 2 * kQueries * 4;   // one stage's lse * log2(e) and delta
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  // Shared memory: K, V, Q stages, dO stages, vectors, barriers, plus slack to align the base to 1024.
+  static constexpr int kSmemBytes =
+      2 * kKVBytes + 2 * kStages * kTileBytes + kStages * kVecBytes + kBarBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
 
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int N,
-                             int M, float scale_log2, float scale) {
-  constexpr int BK = D == 128 ? 32 : 64;
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int NS = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + kBlockRows * LD;
-  __nv_bfloat16* Ks = dOs + kBlockRows * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int N, int M, float scale_log2, float scale) {
+  using T = DqTiles<D>;
+  constexpr int BK = T::kKeys;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte aligned bases.
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + T::kQBytes;
+  const uint32_t k_s = do_s + T::kQBytes;
+  const uint32_t v_s = k_s + S * T::kTileBytes;
+  const uint32_t q_full = v_s + S * T::kTileBytes;  // then the K/V ring's barriers
+  const KvRing<S> ring{q_full};
 
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockRows;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int r0 = warp * 16;
-  const __nv_bfloat16* kb = k + (size_t)b * M * D;
-  const __nv_bfloat16* vb = v + (size_t)b * M * D;
-
-  load_tile_bf16<D, kBlockRows, LD, 128>(Qs, q + (size_t)b * N * D, q0, N);
-  load_tile_bf16<D, kBlockRows, LD, 128>(dOs, dout + (size_t)b * N * D, q0, N);
-
-  // Rows g and g+8 of the warp's slice.
-  const int row_a = q0 + r0 + g;
-  const int row_b = row_a + 8;
-  float lse2[2], dl[2];
-  lse2[0] = row_a < N ? lse[(size_t)b * N + row_a] * kLog2e : 0.f;
-  lse2[1] = row_b < N ? lse[(size_t)b * N + row_b] * kLog2e : 0.f;
-  dl[0] = row_a < N ? delta[(size_t)b * N + row_a] : 0.f;
-  dl[1] = row_b < N ? delta[(size_t)b * N + row_b] : 0.f;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
+  const int q0 = blockIdx.x * T::kRowsQ;
   const int n_tiles = (M + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile_bf16<D, BK, LD, 128>(Ks, kb, k0, M);
-    load_tile_bf16<D, BK, LD, 128>(Vs, vb, k0, M);
-    __syncthreads();
 
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t qa[4], da[4];
-      load_a_frag<LD>(qa, Qs, r0, kd, g, tig);
-      load_a_frag<LD>(da, dOs, r0, kd, g, tig);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int off = (j * 8 + g) * LD + kd * 16 + tig * 2;
-        mma_bf16_16816(s[j], qa, *reinterpret_cast<const uint32_t*>(Ks + off),
-                       *reinterpret_cast<const uint32_t*>(Ks + off + 8));
-        mma_bf16_16816(dp[j], da, *reinterpret_cast<const uint32_t*>(Vs + off),
-                       *reinterpret_cast<const uint32_t*>(Vs + off + 8));
-      }
-    }
-
-    // dS, in place of S.
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tig * 2 + (e & 1);
-        const int r = e >> 1;
-        const float p = key < M ? exp2f(s[j][e] * scale_log2 - lse2[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[r]);
-      }
-    }
-    uint32_t dsa[BK / 16][4];
-    pack_a<NS>(dsa, s);
-    mma_a_tile<ND, BK / 16, LD>(acc, dsa, reinterpret_cast<const uint16_t*>(Ks), g, tig);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    ring.init(4 * T::kConsumers);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* ob = dq + (size_t)b * N * D;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, 2 * T::kQBytes);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int col = nd * 8 + tig * 2;
-    if (row_a < N) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_a * D + col) =
-          __floats2bfloat162_rn(acc[nd][0] * scale, acc[nd][1] * scale);
+      for (int x = 0; x < T::kBoxes; ++x) {
+        tma_load_3d(q_s + x * T::kRowsQ * T::kRowBytes, &tq, q_full, x * T::kBox, q0, b);
+        tma_load_3d(do_s + x * T::kRowsQ * T::kRowBytes, &tdo, q_full, x * T::kBox, q0, b);
+      }
+      ring.template produce<T>(k_s, v_s, &tk, &tv, n_tiles, b);
     }
-    if (row_b < N) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_b * D + col) =
-          __floats2bfloat162_rn(acc[nd][2] * scale, acc[nd][3] * scale);
-    }
+  } else {
+    // ---- consumer warpgroups: 64 Q rows each ----
+    setmaxnreg_inc<T::kConsumerRegs>();
+    // Warp-uniform by construction (a shuffle from lane 0), so descriptors stay in uniform registers.
+    const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0) - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    // This thread's rows (accumulator rows g and g+8 of its warp) and their lse * log2(e) and delta.
+    const int row_a = q0 + wg * 64 + warp * 16 + g;
+    const int row_b = row_a + 8;
+    const float* lse_b = lse + (size_t)b * N;
+    const float* delta_b = delta + (size_t)b * N;
+    const float l2a = row_a < N ? lse_b[row_a] * kLog2e : 0.f;
+    const float l2b = row_b < N ? lse_b[row_b] * kLog2e : 0.f;
+    const float dla = row_a < N ? delta_b[row_a] : 0.f;
+    const float dlb = row_b < N ? delta_b[row_b] : 0.f;
+    const bool ragged = M % BK != 0;
+    const int last_valid = M - (n_tiles - 1) * BK;
+
+    float s[BK / 2], dp[BK / 2], dq_acc[D / 2];
+    uint32_t ds[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    // S = Q K^T and dP = dO V^T, all operands K-major (the forward's S).
+    auto sdp_issue = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BK>(s, T::k_major(q_s, T::kRowsQ, wg * 64, kk),
+                     T::k_major(k_s + st * T::kTileBytes, BK, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BK>(dp, T::k_major(do_s, T::kRowsQ, wg * 64, kk),
+                     T::k_major(v_s + st * T::kTileBytes, BK, 0, kk), kk > 0);
+      }
+    };
+    // dQ += dS K: K read MN-major from the same stage (the forward's V).
+    auto dq_issue = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs<D>(dq_acc, ds[kk], T::mn_major(k_s + st * T::kTileBytes, BK, kk));
+      }
+    };
+    // dS = P (dP - delta) in place of dP, P = exp2(S scale log2(e) - lse log2(e)).
+    // With `mask`, keys >= last_valid (zero rows past M) get dS = 0.
+    auto grads = [&](bool mask) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        dp[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -l2a)) * (dp[4 * j] - dla);
+        dp[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -l2a)) * (dp[4 * j + 1] - dla);
+        dp[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -l2b)) * (dp[4 * j + 2] - dlb);
+        dp[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -l2b)) * (dp[4 * j + 3] - dlb);
+      }
+      if (mask) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (j * 8 + t4 * 2 + (e & 1) >= last_valid) dp[4 * j + e] = 0.f;
+          }
+        }
+      }
+    };
+    auto stage = [](int t) { return t % S; };
+    auto parity = [](int t) { return (uint32_t)((t / S) & 1); };
+
+    mbar_wait(q_full, 0);
+    // Tile 0.
+    mbar_wait(ring.k_full(0), 0);
+    mbar_wait(ring.v_full(0), 0);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    sdp_issue(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (lane == 0) mbar_arrive(ring.v_empty(0));
+    grads(ragged && n_tiles == 1);
+    to_a_frags<BK>(dp, ds);
+
+    // Tile t: issue S(t) and dP(t), then dQ += dS(t-1) K(t-1); dS(t) is
+    // computed while that product runs and packed once it has retired.
+    // `mask` is a literal false in the loop, so the loop carries no masking
+    // code; the last tile takes its own step.
+    auto step = [&](int t, bool mask) {
+      mbar_wait(ring.k_full(stage(t)), parity(t));
+      mbar_wait(ring.v_full(stage(t)), parity(t));
+      // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
+      // 1 + wg is this warpgroup's turn, signalled by the other one).
+      if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dq_acc);
+      fence_regs(ds);
+      wgmma_fence();
+      sdp_issue(stage(t));
+      wgmma_commit();
+      dq_issue(stage(t - 1));
+      wgmma_commit();
+      if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
+      wgmma_wait<1>();  // S(t) and dP(t) are ready; dQ of tile t - 1 may still run
+      fence_regs(s);
+      fence_regs(dp);
+      if (lane == 0) mbar_arrive(ring.v_empty(stage(t)));
+      grads(mask);
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(ds);
+      if (lane == 0) mbar_arrive(ring.k_empty(stage(t - 1)));
+      to_a_frags<BK>(dp, ds);
+    };
+    for (int t = 1; t < n_tiles - 1; ++t) step(t, false);
+    if (n_tiles > 1) step(n_tiles - 1, ragged);
+    fence_regs(dq_acc);
+    fence_regs(ds);
+    wgmma_fence();
+    dq_issue(stage(n_tiles - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+
+    store_rows_bf16<D>(dq_acc, dq + (size_t)b * N * D, row_a, N, scale, scale, t4);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                              __nv_bfloat16* __restrict__ dv, int N, int M, float scale_log2,
-                              float scale) {
-  constexpr int BQ = D == 128 ? 32 : 64;
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int NS = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kBlockRows * LD;
-  __nv_bfloat16* Qs = Vs + kBlockRows * LD;
-  __nv_bfloat16* dOs = Qs + BQ * LD;
-  float* lse2s = reinterpret_cast<float*>(dOs + BQ * LD);
-  float* dls = lse2s + BQ;
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N, int M,
+                              float scale_log2, float scale) {
+  using T = DkvTiles<D>;
+  constexpr int BQ = T::kQueries;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte aligned bases.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + T::kKVBytes;
+  const uint32_t q_s = v_s + T::kKVBytes;          // Q stages
+  const uint32_t do_s = q_s + S * T::kTileBytes;   // dO stages
+  const uint32_t vec_s = do_s + S * T::kTileBytes;  // per stage: lse * log2(e) [BQ], then delta [BQ]
+  const uint32_t bar = vec_s + S * T::kVecBytes;   // kv_full, then full[S], empty[S]
+  float* vecs = reinterpret_cast<float*>(smem_raw + (vec_s - raw));
+  const uint32_t kv_full = bar;
+  auto full = [&](int st) { return bar + 8 * (1 + st); };
+  auto empty = [&](int st) { return bar + 8 * (1 + S + st); };
 
   const int b = blockIdx.y;
-  const int k0 = blockIdx.x * kBlockRows;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int r0 = warp * 16;
-  const __nv_bfloat16* qb = q + (size_t)b * N * D;
-  const __nv_bfloat16* dob = dout + (size_t)b * N * D;
-
-  load_tile_bf16<D, kBlockRows, LD, 128>(Ks, k + (size_t)b * M * D, k0, M);
-  load_tile_bf16<D, kBlockRows, LD, 128>(Vs, v + (size_t)b * M * D, k0, M);
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    dka[nd][0] = dka[nd][1] = dka[nd][2] = dka[nd][3] = 0.f;
-    dva[nd][0] = dva[nd][1] = dva[nd][2] = dva[nd][3] = 0.f;
-  }
-
+  const int k0 = blockIdx.x * T::kRowsKV;
   const int n_tiles = (N + BQ - 1) / BQ;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * BQ;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile_bf16<D, BQ, LD, 128>(Qs, qb, q0, N);
-    load_tile_bf16<D, BQ, LD, 128>(dOs, dob, q0, N);
-    if (threadIdx.x < BQ) {
-      const int row = q0 + threadIdx.x;
-      // +inf gives probability 0 to queries past N.
-      lse2s[threadIdx.x] = row < N ? lse[(size_t)b * N + row] * kLog2e : INFINITY;
-      dls[threadIdx.x] = row < N ? delta[(size_t)b * N + row] : 0.f;
-    }
-    __syncthreads();
 
-    // Transposed tiles: rows are this warp's 16 keys, columns the BQ queries.
-    float st[NS][4], dpt[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 32);                  // the 32 lanes of the producer's first warp
+      mbar_init(empty(st), 4 * T::kConsumers);  // lane 0 of each consumer warp
     }
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t ka[4], va[4];
-      load_a_frag<LD>(ka, Ks, r0, kd, g, tig);
-      load_a_frag<LD>(va, Vs, r0, kd, g, tig);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int off = (j * 8 + g) * LD + kd * 16 + tig * 2;
-        mma_bf16_16816(st[j], ka, *reinterpret_cast<const uint32_t*>(Qs + off),
-                       *reinterpret_cast<const uint32_t*>(Qs + off + 8));
-        mma_bf16_16816(dpt[j], va, *reinterpret_cast<const uint32_t*>(dOs + off),
-                       *reinterpret_cast<const uint32_t*>(dOs + off + 8));
-      }
-    }
-
-    // P^T in place of S^T, dS^T in place of dP^T.
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + tig * 2 + (e & 1);
-        const float p = exp2f(st[j][e] * scale_log2 - lse2s[qc]);
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - dls[qc]);
-      }
-    }
-    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-    pack_a<NS>(pa, st);
-    pack_a<NS>(dsa, dpt);
-    mma_a_tile<ND, BQ / 16, LD>(dva, pa, reinterpret_cast<const uint16_t*>(dOs), g, tig);
-    mma_a_tile<ND, BQ / 16, LD>(dka, dsa, reinterpret_cast<const uint16_t*>(Qs), g, tig);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const int row_a = k0 + r0 + g;
-  const int row_b = row_a + 8;
-  __nv_bfloat16* dkb = dk + (size_t)b * M * D;
-  __nv_bfloat16* dvb = dv + (size_t)b * M * D;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: its first warp fills the ring ----
+    setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        tma_prefetch_map(&tk);
+        tma_prefetch_map(&tv);
+        tma_prefetch_map(&tq);
+        tma_prefetch_map(&tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * T::kKVBytes);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int col = nd * 8 + tig * 2;
-    if (row_a < M) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)row_a * D + col) =
-          __floats2bfloat162_rn(dka[nd][0] * scale, dka[nd][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)row_a * D + col) =
-          __floats2bfloat162_rn(dva[nd][0], dva[nd][1]);
+        for (int x = 0; x < T::kBoxes; ++x) {
+          tma_load_3d(k_s + x * T::kRowsKV * T::kRowBytes, &tk, kv_full, x * T::kBox, k0, b);
+          tma_load_3d(v_s + x * T::kRowsKV * T::kRowBytes, &tv, kv_full, x * T::kBox, k0, b);
+        }
+      }
+      // Lane 0 issues the TMA loads of Q and dO; every lane copies its share
+      // of the stage's lse * log2(e) and delta (read before the stage is free)
+      // and then arrives.
+      const float* lse_b = lse + (size_t)b * N;
+      const float* delta_b = delta + (size_t)b * N;
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        float l2[BQ / 32], dl[BQ / 32];
+#pragma unroll
+        for (int i = 0; i < BQ / 32; ++i) {
+          const int row = t * BQ + 32 * i + lane;
+          l2[i] = row < N ? lse_b[row] * kLog2e : INFINITY;  // queries past N: P = 0
+          dl[i] = row < N ? delta_b[row] : 0.f;
+        }
+        mbar_wait(empty(st), phase ^ 1);
+        float* vec = vecs + st * 2 * BQ;
+#pragma unroll
+        for (int i = 0; i < BQ / 32; ++i) {
+          vec[32 * i + lane] = l2[i];
+          vec[BQ + 32 * i + lane] = dl[i];
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full(st), 2 * T::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < T::kBoxes; ++x) {
+            tma_load_3d(q_s + st * T::kTileBytes + x * BQ * T::kRowBytes, &tq, full(st), x * T::kBox, t * BQ, b);
+            tma_load_3d(do_s + st * T::kTileBytes + x * BQ * T::kRowBytes, &tdo, full(st), x * T::kBox, t * BQ,
+                        b);
+          }
+        } else {
+          mbar_arrive(full(st));
+        }
+        if (++st == S) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
     }
-    if (row_b < M) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)row_b * D + col) =
-          __floats2bfloat162_rn(dka[nd][2] * scale, dka[nd][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)row_b * D + col) =
-          __floats2bfloat162_rn(dva[nd][2], dva[nd][3]);
+  } else {
+    // ---- consumer warpgroups: 64 K/V rows each ----
+    setmaxnreg_inc<T::kConsumerRegs>();
+    const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0) - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+
+    // Transposed tiles: rows are this warpgroup's keys, columns the BQ queries.
+    float st_acc[BQ / 2], dpt[BQ / 2], dk_acc[D / 2], dv_acc[D / 2];
+    uint32_t pt[BQ / 16][4], dst[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dk_acc[i] = 0.f;
+      dv_acc[i] = 0.f;
     }
+
+    // S^T = K Q^T and dP^T = V dO^T, all operands K-major: K and V as the
+    // forward's Q, the Q and dO stages as its K.
+    auto sdp_issue = [&](float (&s_)[BQ / 2], float (&dp_)[BQ / 2], int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BQ>(s_, T::k_major(k_s, T::kRowsKV, wg * 64, kk),
+                     T::k_major(q_s + st * T::kTileBytes, BQ, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BQ>(dp_, T::k_major(v_s, T::kRowsKV, wg * 64, kk),
+                     T::k_major(do_s + st * T::kTileBytes, BQ, 0, kk), kk > 0);
+      }
+    };
+    // dV += P^T dO and dK += dS^T Q: the same dO and Q stages, now MN-major
+    // B operands read with the transpose bit.
+    auto dkv_issue = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        wgmma_rs<D>(dv_acc, pt[kk], T::mn_major(do_s + st * T::kTileBytes, BQ, kk));
+        wgmma_rs<D>(dk_acc, dst[kk], T::mn_major(q_s + st * T::kTileBytes, BQ, kk));
+      }
+    };
+    // P^T in place of S^T, dS^T in place of dP^T, then both packed to A
+    // fragments (once the previous tile's dV, dK have retired); a column is a
+    // query, whose lse * log2(e) and delta the producer put beside the stage.
+    auto grads = [&](float (&s_)[BQ / 2], float (&dp_)[BQ / 2], int st) {
+      const float* vec = vecs + st * 2 * BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(vec + 8 * j + 2 * t4);
+        const float2 dl = *reinterpret_cast<const float2*>(vec + BQ + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s_[4 * j + e], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          s_[4 * j + e] = p;
+          dp_[4 * j + e] = p * (dp_[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+    };
+    auto pack = [&](const float (&s_)[BQ / 2], const float (&dp_)[BQ / 2]) {
+      to_a_frags<BQ>(s_, pt);
+      to_a_frags<BQ>(dp_, dst);
+    };
+    auto fence_second = [&]() {  // the operands of dkv_issue
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pt);
+      fence_regs(dst);
+    };
+    auto stage = [](int t) { return t % S; };
+    auto parity = [](int t) { return (uint32_t)((t / S) & 1); };
+
+    mbar_wait(kv_full, 0);
+    auto one_buffer = [&]() {
+      // Tile 0.
+      mbar_wait(full(0), 0);
+      fence_regs(st_acc);
+      fence_regs(dpt);
+      wgmma_fence();
+      sdp_issue(st_acc, dpt, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st_acc);
+      fence_regs(dpt);
+      grads(st_acc, dpt, 0);
+      pack(st_acc, dpt);
+
+      // Tile t: issue S^T(t) and dP^T(t), then dV and dK of tile t - 1; P^T(t)
+      // and dS^T(t) are computed while those run and packed once they have retired.
+      for (int t = 1; t < n_tiles; ++t) {
+        mbar_wait(full(stage(t)), parity(t));
+        // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
+        // 1 + wg is this warpgroup's turn, signalled by the other one).
+        if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+        fence_regs(st_acc);
+        fence_regs(dpt);
+        fence_second();
+        wgmma_fence();
+        sdp_issue(st_acc, dpt, stage(t));
+        wgmma_commit();
+        dkv_issue(stage(t - 1));
+        wgmma_commit();
+        if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
+        wgmma_wait<1>();  // S^T(t) and dP^T(t) are ready; dV, dK of tile t - 1 may still run
+        fence_regs(st_acc);
+        fence_regs(dpt);
+        grads(st_acc, dpt, stage(t));
+        wgmma_wait<0>();
+        fence_second();
+        if (lane == 0) mbar_arrive(empty(stage(t - 1)));
+        pack(st_acc, dpt);
+      }
+    };
+    if constexpr (T::kIssueAhead) {
+      // Two score buffers: the pair of tile t+1 is issued before the
+      // exponentials of tile t, so its latency hides behind them as well.
+      // Every wgmma group is issued and waited for on a path fixed at compile
+      // time, so a single tile takes the one-buffer path and the last tile
+      // its own step.
+      if (n_tiles == 1) {
+        one_buffer();
+      } else {
+        float st2[BQ / 2], dpt2[BQ / 2];
+        mbar_wait(full(0), 0);
+        mbar_wait(full(stage(1)), parity(1));
+        fence_regs(st_acc);
+        fence_regs(dpt);
+        fence_regs(st2);
+        fence_regs(dpt2);
+        wgmma_fence();
+        sdp_issue(st_acc, dpt, 0);
+        wgmma_commit();
+        sdp_issue(st2, dpt2, stage(1));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st_acc);
+        fence_regs(dpt);
+        grads(st_acc, dpt, 0);
+        pack(st_acc, dpt);
+
+        // Tile t, its pair already issued into (cs, cdp): issue dV, dK of
+        // tile t - 1 and (ahead) the pair of tile t + 1 into (ns, ndp), compute
+        // P^T(t), dS^T(t) while they run, pack them once dV, dK have retired.
+        // `ahead` is false on the last tile only and a literal at every call.
+        auto step = [&](int t, float (&cs)[BQ / 2], float (&cdp)[BQ / 2], float (&ns)[BQ / 2],
+                        float (&ndp)[BQ / 2], bool ahead) {
+          if (ahead) mbar_wait(full(stage(t + 1)), parity(t + 1));
+          if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+          fence_second();
+          fence_regs(ns);
+          fence_regs(ndp);
+          wgmma_fence();
+          dkv_issue(stage(t - 1));
+          wgmma_commit();
+          if (ahead) {
+            sdp_issue(ns, ndp, stage(t + 1));
+            wgmma_commit();
+          }
+          if (T::kPingPong && !(wg == 1 && !ahead)) named_bar_arrive(2 - wg, 256);
+          if (ahead) {  // the pair of tile t is ready
+            wgmma_wait<2>();
+          } else {
+            wgmma_wait<1>();
+          }
+          fence_regs(cs);
+          fence_regs(cdp);
+          grads(cs, cdp, stage(t));
+          if (ahead) {  // dV, dK of tile t - 1 have retired
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_second();
+          if (lane == 0) mbar_arrive(empty(stage(t - 1)));
+          pack(cs, cdp);
+        };
+        int t = 1;
+        for (; t + 2 < n_tiles; t += 2) {
+          step(t, st2, dpt2, st_acc, dpt, true);
+          step(t + 1, st_acc, dpt, st2, dpt2, true);
+        }
+        if (t + 1 < n_tiles) {
+          step(t, st2, dpt2, st_acc, dpt, true);
+          step(t + 1, st_acc, dpt, st2, dpt2, false);
+        } else {
+          step(t, st2, dpt2, st_acc, dpt, false);
+        }
+      }
+    } else {
+      one_buffer();
+    }
+    fence_second();
+    wgmma_fence();
+    dkv_issue(stage(n_tiles - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+
+    const int row_a = k0 + wg * 64 + warp * 16 + g;
+    store_rows_bf16<D>(dk_acc, dk + (size_t)b * M * D, row_a, M, scale, scale, t4);
+    store_rows_bf16<D>(dv_acc, dv + (size_t)b * M * D, row_a, M, 1.f, 1.f, t4);
   }
 }
 
@@ -513,22 +830,27 @@ struct Args {
 
 template <int D>
 cudaError_t launch_dq(const Args& a, void* dq, bool bf16) {
-  const dim3 grid((a.N + kBlockRows - 1) / kBlockRows, a.B);
   const float sl2 = a.scale * kLog2e;
   if (bf16) {
-    constexpr int BK = D == 128 ? 32 : 64;
-    const size_t smem = (size_t)(2 * kBlockRows + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
-    const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, smem);
+    using T = DqTiles<D>;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!encode_map(&tq, a.q, a.B, a.N, D, T::kBox, T::kRowsQ) ||
+        !encode_map(&tdo, a.dout, a.B, a.N, D, T::kBox, T::kRowsQ) ||
+        !encode_map(&tk, a.k, a.B, a.M, D, T::kBox, T::kKeys) ||
+        !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kKeys)) {
+      return cudaErrorInvalidValue;
+    }
+    const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, T::kSmemBytes);
     if (err != cudaSuccess) return err;
-    using T = __nv_bfloat16;
-    flash_bwd_dq_bf16_kernel<D><<<grid, 128, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.N, a.M, sl2, a.scale);
+    const dim3 grid((a.N + T::kRowsQ - 1) / T::kRowsQ, a.B);
+    flash_bwd_dq_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.N, a.M, sl2, a.scale);
   } else {
     const size_t smem = (size_t)2 * kTileF32 * D * sizeof(float);
     const cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     using T = float;
+    const dim3 grid((a.N + kBlockRows - 1) / kBlockRows, a.B);
     flash_bwd_dq_f32_kernel<D><<<grid, 256, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.N, a.M, sl2, a.scale);
@@ -538,24 +860,28 @@ cudaError_t launch_dq(const Args& a, void* dq, bool bf16) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
-  const dim3 grid((a.M + kBlockRows - 1) / kBlockRows, a.B);
   const float sl2 = a.scale * kLog2e;
   if (bf16) {
-    constexpr int BQ = D == 128 ? 32 : 64;
-    const size_t smem = (size_t)(2 * kBlockRows + 2 * BQ) * (D + 8) * sizeof(__nv_bfloat16) +
-                        2 * BQ * sizeof(float);
-    const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, smem);
+    using T = DkvTiles<D>;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!encode_map(&tq, a.q, a.B, a.N, D, T::kBox, T::kQueries) ||
+        !encode_map(&tdo, a.dout, a.B, a.N, D, T::kBox, T::kQueries) ||
+        !encode_map(&tk, a.k, a.B, a.M, D, T::kBox, T::kRowsKV) ||
+        !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kRowsKV)) {
+      return cudaErrorInvalidValue;
+    }
+    const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, T::kSmemBytes);
     if (err != cudaSuccess) return err;
-    using T = __nv_bfloat16;
-    flash_bwd_dkv_bf16_kernel<D><<<grid, 128, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        a.N, a.M, sl2, a.scale);
+    const dim3 grid((a.M + T::kRowsKV - 1) / T::kRowsKV, a.B);
+    using E = __nv_bfloat16;
+    flash_bwd_dkv_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<E*>(dk), static_cast<E*>(dv), a.N, a.M, sl2, a.scale);
   } else {
     const size_t smem = (size_t)2 * kTileF32 * D * sizeof(float) + 2 * kTileF32 * sizeof(float);
     const cudaError_t err = allow_smem(flash_bwd_dkv_f32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     using T = float;
+    const dim3 grid((a.M + kBlockRows - 1) / kBlockRows, a.B);
     flash_bwd_dkv_f32_kernel<D><<<grid, 256, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
@@ -566,7 +892,8 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
 
 }  // namespace
 
-// q, dout, dq [B,N,D]; k, v, dk, dv [B,M,D] (all contiguous, same dtype);
+// q, dout, dq [B,N,D]; k, v, dk, dv [B,M,D] (all contiguous, same dtype, 16-byte
+// aligned: the bf16 kernels read q, k, v, dout through TMA tensor maps);
 // lse, delta [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32, 64
 // or 128.  Each returns the cudaError_t of its launch (0 on success).
 extern "C" int mrisr_flash_attn_bwd_dq(const void* q, const void* k, const void* v,

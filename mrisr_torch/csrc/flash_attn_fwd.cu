@@ -72,8 +72,6 @@
 //   * Epilogue: O / l in bf16 and lse = m ln2 + ln l, rows past N not stored.
 //   * fp32: plain FMA (no TF32), 4 threads per Q row, each owning a quarter
 //     of D; K/V tiles of 32 rows in shared memory, 16 keys per softmax update.
-#include <cuda.h>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -83,7 +81,7 @@ constexpr int kBlockQ = 64;  // Q rows per block of the fp32 kernel
 
 // Tile table of the bf16 kernel, per head dimension D.
 template <int D>
-struct Bf16Tiles {
+struct Bf16Tiles : SwizzledRows<D> {
   static constexpr int kConsumers = 2;               // consumer warpgroups, 64 Q rows each
   static constexpr int kRowsQ = 64 * kConsumers;     // Q rows per CTA
   static constexpr int kThreads = 128 * (kConsumers + 1);
@@ -100,28 +98,14 @@ struct Bf16Tiles {
   static constexpr bool kIssueAhead = D == 64;
   static constexpr bool kPingPong = D == 128;
   static_assert(!kPingPong || kConsumers == 2, "turns are taken between two consumer warpgroups");
-  static constexpr int kBox = D == 128 ? 64 : D;     // columns per TMA box
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kRowBytes = kBox * 2;         // bytes per row of a box: 64 or 128
-  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B
   static constexpr int kQBytes = kRowsQ * D * 2;
   static constexpr int kTileBytes = kKeys * D * 2;   // one K (or V) stage
   static constexpr int kOnesBytes = 1024;
-  static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
+  static constexpr int kBarBytes = 8 + KvRing<kStages>::kBarBytes;
   // Shared memory: Q, K stages, V stages, ones, barriers, plus slack to align the base to 1024.
   static constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kOnesBytes + kBarBytes + 1024;
   static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bf162_bits(__floats2bfloat162_rn(lo, hi));
-}
 
 // The online-softmax update of one score tile, in place.  s: this thread's
 // scores of rows g and g+8 (wgmma layout), replaced by exp2(s * sl2 - m);
@@ -175,21 +159,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float& m0, floa
   }
 }
 
-// P in bf16 as the A fragments of the PV product: adjacent accumulator pairs
-// are adjacent columns, so n-blocks 2kk and 2kk+1 of S are k-step kk of P.
-template <int BK>
-__device__ __forceinline__ void to_a_frags(const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * kk + h;
-      p[kk][2 * h] = pack_bf16(s[4 * j], s[4 * j + 1]);
-      p[kk][2 * h + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -207,12 +176,8 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
   const uint32_t k_s = q_s + T::kQBytes;
   const uint32_t v_s = k_s + S * T::kTileBytes;
   const uint32_t ones_s = v_s + S * T::kTileBytes;
-  const uint32_t bar = ones_s + T::kOnesBytes;  // q_full, then k_full[S], k_empty[S], v_full[S], v_empty[S]
-  const uint32_t q_full = bar;
-  auto k_full = [&](int st) { return bar + 8 * (1 + st); };
-  auto k_empty = [&](int st) { return bar + 8 * (1 + S + st); };
-  auto v_full = [&](int st) { return bar + 8 * (1 + 2 * S + st); };
-  auto v_empty = [&](int st) { return bar + 8 * (1 + 3 * S + st); };
+  const uint32_t q_full = ones_s + T::kOnesBytes;  // then the K/V ring's barriers
+  const KvRing<S> ring{q_full};
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * T::kRowsQ;
@@ -224,12 +189,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
   }
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int st = 0; st < S; ++st) {
-      mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
-      mbar_init(k_empty(st), 4 * T::kConsumers);  // lane 0 of each consumer warp
-      mbar_init(v_empty(st), 4 * T::kConsumers);
-    }
+    ring.init(4 * T::kConsumers);
     fence_barrier_init();
   }
   fence_proxy_async();
@@ -247,28 +207,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
       for (int x = 0; x < T::kBoxes; ++x) {
         tma_load_3d(q_s + x * T::kRowsQ * T::kRowBytes, &tq, q_full, x * T::kBox, q0, b);
       }
-      int st = 0;
-      uint32_t phase = 0;
-      for (int t = 0; t < n_tiles; ++t) {
-        mbar_wait(k_empty(st), phase ^ 1);
-        mbar_arrive_expect_tx(k_full(st), T::kTileBytes);
-#pragma unroll
-        for (int x = 0; x < T::kBoxes; ++x) {
-          tma_load_3d(k_s + st * T::kTileBytes + x * BK * T::kRowBytes, &tk, k_full(st), x * T::kBox,
-                      t * BK, b);
-        }
-        mbar_wait(v_empty(st), phase ^ 1);
-        mbar_arrive_expect_tx(v_full(st), T::kTileBytes);
-#pragma unroll
-        for (int x = 0; x < T::kBoxes; ++x) {
-          tma_load_3d(v_s + st * T::kTileBytes + x * BK * T::kRowBytes, &tv, v_full(st), x * T::kBox,
-                      t * BK, b);
-        }
-        if (++st == S) {
-          st = 0;
-          phase ^= 1;
-        }
-      }
+      ring.template produce<T>(k_s, v_s, &tk, &tv, n_tiles, b);
     }
   } else {
     // ---- consumer warpgroups: 64 Q rows each ----
@@ -278,30 +217,22 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    constexpr int kSbo = 8 * T::kRowBytes;  // bytes between 8-row groups of a swizzled box
 
     // S = Q K^T: one descriptor pair per 16-column k-step of D.
     auto qk_issue = [&](float (&s)[BK / 2], int st) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int x = kk * 16 / T::kBox, col = (kk * 16) % T::kBox * 2;
-        const uint64_t da = make_desc(q_s + x * T::kRowsQ * T::kRowBytes + wg * 64 * T::kRowBytes + col,
-                                      16, kSbo, T::kSwizzle);
-        const uint64_t db =
-            make_desc(k_s + st * T::kTileBytes + x * BK * T::kRowBytes + col, 16, kSbo, T::kSwizzle);
-        wgmma_ss<BK>(s, da, db, kk > 0);
+        wgmma_ss<BK>(s, T::k_major(q_s, T::kRowsQ, wg * 64, kk), T::k_major(k_s + st * T::kTileBytes, BK, 0, kk),
+                     kk > 0);
       }
     };
     float o_acc[D / 2];
     float l_acc[4];
-    // O += P V and l += P 1: V is MN-major (D contiguous); its 64-column boxes
-    // are kKeys * kRowBytes apart (the leading byte offset), 8-key groups kSbo.
+    // O += P V and l += P 1: V is MN-major (D contiguous).
     auto pv_issue = [&](const uint32_t (&p)[BK / 16][4], int st) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = make_desc(v_s + st * T::kTileBytes + kk * 16 * T::kRowBytes,
-                                      BK * T::kRowBytes, kSbo, T::kSwizzle);
-        wgmma_rs<D>(o_acc, p[kk], dv);
+        wgmma_rs<D>(o_acc, p[kk], T::mn_major(v_s + st * T::kTileBytes, BK, kk));
         wgmma_rs<8>(l_acc, p[kk], make_desc(ones_s, 128, 256, 0));
       }
     };
@@ -336,21 +267,21 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     auto parity = [](int t) { return (uint32_t)((t / S) & 1); };
     auto one_buffer = [&]() {  // one S buffer
       // Tile 0.
-      mbar_wait(k_full(0), 0);
+      mbar_wait(ring.k_full(0), 0);
       fence_regs(s);
       wgmma_fence();
       qk_issue(s, 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      if (lane == 0) mbar_arrive(k_empty(0));
+      if (lane == 0) mbar_arrive(ring.k_empty(0));
       softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && n_tiles == 1, last_valid, t4);
       to_a_frags<BK>(s, p);
 
       // Tile t: issue S(t), then O += P(t-1) V(t-1); the softmax of S(t) runs
       // while the PV product does, and P(t) is packed once it has retired.
       for (int t = 1; t < n_tiles; ++t) {
-        mbar_wait(k_full(stage(t)), parity(t));
+        mbar_wait(ring.k_full(stage(t)), parity(t));
         // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
         // 1 + wg is this warpgroup's turn, signalled by the other one).
         if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
@@ -359,7 +290,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         qk_issue(s, stage(t));
         wgmma_commit();
         rescale();
-        mbar_wait(v_full(stage(t - 1)), parity(t - 1));
+        mbar_wait(ring.v_full(stage(t - 1)), parity(t - 1));
         fence_regs(o_acc);
         fence_regs(l_acc);
         fence_regs(p);
@@ -369,13 +300,13 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
         wgmma_wait<1>();  // S of tile t is ready; P V of tile t - 1 may still run
         fence_regs(s);
-        if (lane == 0) mbar_arrive(k_empty(stage(t)));
+        if (lane == 0) mbar_arrive(ring.k_empty(stage(t)));
         softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && t == n_tiles - 1, last_valid, t4);
         wgmma_wait<0>();
         fence_regs(o_acc);
         fence_regs(l_acc);
         fence_regs(p);
-        if (lane == 0) mbar_arrive(v_empty(stage(t - 1)));
+        if (lane == 0) mbar_arrive(ring.v_empty(stage(t - 1)));
         to_a_frags<BK>(s, p);
       }
     };
@@ -389,8 +320,8 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         one_buffer();
       } else {
         float s2[BK / 2];
-        mbar_wait(k_full(0), 0);
-        mbar_wait(k_full(stage(1)), parity(1));
+        mbar_wait(ring.k_full(0), 0);
+        mbar_wait(ring.k_full(stage(1)), parity(1));
         fence_regs(s);
         fence_regs(s2);
         wgmma_fence();
@@ -400,7 +331,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
-        if (lane == 0) mbar_arrive(k_empty(0));
+        if (lane == 0) mbar_arrive(ring.k_empty(0));
         softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, false, last_valid, t4);
         to_a_frags<BK>(s, p);
 
@@ -411,8 +342,8 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         // inlined step is straight-line code.
         auto step = [&](int t, float (&cur)[BK / 2], float (&nxt)[BK / 2], bool ahead) {
           rescale();
-          mbar_wait(v_full(stage(t - 1)), parity(t - 1));
-          if (ahead) mbar_wait(k_full(stage(t + 1)), parity(t + 1));
+          mbar_wait(ring.v_full(stage(t - 1)), parity(t - 1));
+          if (ahead) mbar_wait(ring.k_full(stage(t + 1)), parity(t + 1));
           if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
           fence_regs(o_acc);
           fence_regs(l_acc);
@@ -432,7 +363,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
             wgmma_wait<1>();
           }
           fence_regs(cur);
-          if (lane == 0) mbar_arrive(k_empty(stage(t)));
+          if (lane == 0) mbar_arrive(ring.k_empty(stage(t)));
           softmax_tile<BK>(cur, m0, m1, a0, a1, scale_log2, ragged && !ahead, last_valid, t4);
           if (ahead) {  // P(t-1) V(t-1) has retired
             wgmma_wait<1>();
@@ -442,7 +373,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
           fence_regs(o_acc);
           fence_regs(l_acc);
           fence_regs(p);
-          if (lane == 0) mbar_arrive(v_empty(stage(t - 1)));
+          if (lane == 0) mbar_arrive(ring.v_empty(stage(t - 1)));
           to_a_frags<BK>(cur, p);
         };
         int t = 1;
@@ -461,7 +392,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
       one_buffer();
     }
     rescale();
-    mbar_wait(v_full(stage(n_tiles - 1)), parity(n_tiles - 1));
+    mbar_wait(ring.v_full(stage(n_tiles - 1)), parity(n_tiles - 1));
     fence_regs(o_acc);
     fence_regs(l_acc);
     fence_regs(p);
@@ -478,19 +409,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
     const int row_a = q0 + wg * 64 + warp * 16 + g;
     const int row_b = row_a + 8;
-    __nv_bfloat16* ob = o + (size_t)b * N * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = j * 8 + t4 * 2;
-      if (row_a < N) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_a * D + col) =
-            __floats2bfloat162_rn(o_acc[4 * j] * inv0, o_acc[4 * j + 1] * inv0);
-      }
-      if (row_b < N) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_b * D + col) =
-            __floats2bfloat162_rn(o_acc[4 * j + 2] * inv1, o_acc[4 * j + 3] * inv1);
-      }
-    }
+    store_rows_bf16<D>(o_acc, o + (size_t)b * N * D, row_a, N, inv0, inv1, t4);
     if (t4 == 0) {
       if (row_a < N) lse[(size_t)b * N + row_a] = m0 * kLn2 + logf(fmaxf(l0, 1e-37f));
       if (row_b < N) lse[(size_t)b * N + row_b] = m1 * kLn2 + logf(fmaxf(l1, 1e-37f));
@@ -600,43 +519,6 @@ __global__ void __launch_bounds__(256)
     }
     if (part == 0) lse[(size_t)b * N + qrow] = m_run * kLn2 + logf(fmaxf(l_run, 1e-37f));
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver function: fetched once through the
-// runtime, so the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess) {
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 3-D map over a contiguous bf16 [batch, rows, D] tensor, read in boxes of
-// box_rows x box_cols (box_cols * 2 bytes is the swizzle width).
-bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int D, int box_cols, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

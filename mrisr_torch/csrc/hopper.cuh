@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks in raw PTX for flash_attn_fwd.cu: mbarriers,
-// TMA tensor loads, warpgroup matrix multiplies (wgmma) and their shared-memory
-// descriptors, register reallocation between warpgroups.
+// Hopper (sm_90a) building blocks in raw PTX for flash_attn_fwd.cu and
+// flash_attn_bwd.cu: mbarriers, TMA tensor loads and the host code that encodes
+// their tensor maps, warpgroup matrix multiplies (wgmma) and their
+// shared-memory descriptors, register reallocation between warpgroups.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,6 +154,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
 // warp's 16 rows: a[0] (row g, k 2t..2t+1), a[1] (row g+8), a[2] (row g,
 // k 2t+8..2t+9), a[3] (row g+8, k 2t+8..2t+9), with g = lane/4, t = lane%4.
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -241,6 +265,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64(d, desc_a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_ss_n128(d, desc_a, desc_b, scale_d);
   if constexpr (N == 256) wgmma_ss_n256(d, desc_a, desc_b, scale_d);
 }
@@ -251,6 +277,173 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b);
   if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
   if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64nN accumulator in bf16 as the A fragments of a product over its N
+// columns: adjacent accumulator pairs are adjacent columns, so n-blocks 2kk
+// and 2kk+1 are k-step kk.
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&s)[N / 2], uint32_t (&p)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * kk + h;
+      p[kk][2 * h] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      p[kk][2 * h + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tiles of bf16 rows with D columns as TMA writes them: one box of D
+// columns (64-byte rows, 64B swizzle at D=32; 128-byte rows, 128B swizzle at
+// D=64), or at D=128 two boxes of 64 columns, one after the other.  A tile's
+// base is 1024-byte aligned.
+template <int D>
+struct SwizzledRows {
+  static constexpr int kBox = D == 128 ? 64 : D;  // columns per TMA box
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kRowBytes = kBox * 2;      // bytes per row of a box: 64 or 128
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B
+  static constexpr int kSbo = 8 * kRowBytes;      // bytes between 8-row groups of a box
+
+  // K-major operand (the product sums over D): rows row0.. of a tile of
+  // `rows` rows, k-step kk (columns 16kk..16kk+15).
+  __device__ static __forceinline__ uint64_t k_major(uint32_t tile, int rows, int row0, int kk) {
+    const int x = kk * 16 / kBox, col = (kk * 16) % kBox * 2;
+    return make_desc(tile + x * rows * kRowBytes + row0 * kRowBytes + col, 16, kSbo, kSwizzle);
+  }
+
+  // MN-major B operand (the product sums over rows, its N is D; wgmma's
+  // transpose bit): k-step kk is rows 16kk..16kk+15 of a tile of `rows` rows,
+  // its 64-column boxes `rows * kRowBytes` apart (the leading byte offset).
+  __device__ static __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kk) {
+    return make_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, kSbo, kSwizzle);
+  }
+};
+
+// The K/V ring of a kernel that walks K and V tiles (the forward, dQ): S
+// stages, the mbarriers at `base` after one barrier of the kernel's own, a
+// full and an empty barrier for K, then for V, per stage.
+template <int S>
+struct KvRing {
+  uint32_t base;
+  __device__ uint32_t k_full(int st) const { return base + 8 * (1 + st); }
+  __device__ uint32_t k_empty(int st) const { return base + 8 * (1 + S + st); }
+  __device__ uint32_t v_full(int st) const { return base + 8 * (1 + 2 * S + st); }
+  __device__ uint32_t v_empty(int st) const { return base + 8 * (1 + 3 * S + st); }
+  static constexpr int kBarBytes = 8 * 4 * S;
+
+  // A full barrier waits for the producer's arrival and its TMA bytes, an
+  // empty one for lane 0 of each consumer warp.
+  __device__ void init(int consumer_warps) const {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), consumer_warps);
+      mbar_init(v_empty(st), consumer_warps);
+    }
+  }
+
+  // The producer (one thread): K and V tile t (T::kKeys rows) into stage
+  // t % S of the rings at k_s and v_s (T::kTileBytes each) once the
+  // consumers have released it.
+  template <class T>
+  __device__ void produce(uint32_t k_s, uint32_t v_s, const CUtensorMap* tk, const CUtensorMap* tv, int n_tiles,
+                          int b) const {
+    constexpr int BK = T::kKeys;
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      mbar_wait(k_empty(st), phase ^ 1);
+      mbar_arrive_expect_tx(k_full(st), T::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < T::kBoxes; ++x) {
+        tma_load_3d(k_s + st * T::kTileBytes + x * BK * T::kRowBytes, tk, k_full(st), x * T::kBox, t * BK, b);
+      }
+      mbar_wait(v_empty(st), phase ^ 1);
+      mbar_arrive_expect_tx(v_full(st), T::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < T::kBoxes; ++x) {
+        tma_load_3d(v_s + st * T::kTileBytes + x * BK * T::kRowBytes, tv, v_full(st), x * T::kBox, t * BK, b);
+      }
+      if (++st == S) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+  }
+};
+
+// Store this thread's two rows of an m64nD fp32 accumulator (row_a and
+// row_a + 8, wgmma layout) as bf16 into the row-major [rows, D] `out`, times
+// f_a and f_b; rows >= limit are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2], __nv_bfloat16* out, int row_a,
+                                                int limit, float f_a, float f_b, int t4) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    if (row_a < limit) {
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_a * D + col) =
+          __floats2bfloat162_rn(acc[4 * j] * f_a, acc[4 * j + 1] * f_a);
+    }
+    if (row_a + 8 < limit) {
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row_a + 8) * D + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * f_b, acc[4 * j + 3] * f_b);
+    }
+  }
+}
+
+// ---- host: TMA tensor maps ------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function: fetched once through the
+// runtime, so the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 [batch, rows, D] tensor, read in boxes of
+// box_rows x box_cols (box_cols * 2 bytes is the swizzle width).  The zero
+// fill past the last row happens per batch.
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int D, int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

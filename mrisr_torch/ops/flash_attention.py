@@ -133,9 +133,9 @@ def _device_ctx(device: torch.device):
 def _check_kernel_inputs(d: int, batch: int, **tensors: torch.Tensor) -> None:
     """Raise on what the kernels cannot take.
 
-    The bf16 forward reads Q, K and V through TMA tensor maps, which need a
-    16-byte aligned base and contiguous rows; every kernel takes D in
-    ``KERNEL_HEAD_DIMS`` only.
+    The bf16 kernels read Q, K, V (and dO) through TMA tensor maps, which
+    need a 16-byte aligned base and contiguous rows; lse and delta are read
+    by row; every kernel takes D in ``KERNEL_HEAD_DIMS`` only.
     """
     dtype = next(iter(tensors.values())).dtype
     if dtype not in KERNEL_DTYPES:

@@ -3,7 +3,7 @@
 Run from the repository root: ``python3 -m mrisr_torch.tools.flash_fwd_sweep``.
 Each variant is the checked-in source with a few lines replaced; all are
 built at once with ``nvcc`` (the flags of ``mrisr_torch/_build.py``) under
-``mrisr_torch/.build/sweep/`` and timed with CUDA events in turns (every
+``mrisr_torch/.build/sweep/flash_attn_fwd/`` and timed with CUDA events in turns (every
 variant, then every variant again in reverse order) on the chain's shapes,
 after its output is checked against the plain version.  It prints one JSON
 line per shape and, last, the card's name and power limit.
@@ -47,7 +47,6 @@ SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4224, 4096, 64), (8, 1
           (8, 4096, 64, 64), (8, 4096, 4096, 128)]
 
 _ONES = "        wgmma_rs<8>(l_acc, p[kk], make_desc(ones_s, 128, 256, 0));\n"
-_PACK = "      to_a_frags<BK>(s, p);\n"
 _REGSUM = """#pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
@@ -103,33 +102,52 @@ VARIANTS = {
 }
 
 
-def build_variants() -> dict:
-    root = _build.BUILD_ROOT / "sweep"
+def build_variants(variants: dict, source: str = "flash_attn_fwd") -> dict:
+    """Build every variant of ``csrc/<source>.cu`` (``{name: [(anchor, replacement), ...]}``) at once.
+
+    Returns ``{name: ctypes.CDLL}``; prints each variant's nvcc status, ptxas's performance and error
+    notes and the kernels that spill.
+    """
+    root = _build.BUILD_ROOT / "sweep" / source
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         out = root / name
         shutil.copytree(_build.CSRC, out)
-        src = (out / "flash_attn_fwd.cu").read_text()
+        src = (out / f"{source}.cu").read_text()
         for old, new in edits:
             if src.count(old) < 1:
                 raise RuntimeError(f"variant {name}: anchor not in the source: {old!r}")
             src = src.replace(old, new, 1)
-        (out / "flash_attn_fwd.cu").write_text(src)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / "flash_attn_fwd.cu")]
+        (out / f"{source}.cu").write_text(src)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / f"{source}.cu")]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
+    libs = {}
     for name, (out, proc) in procs.items():
         log = proc.communicate()[0]
         notes = [ln.strip()[:160] for ln in log.splitlines() if "Performance Loss" in ln or "error" in ln]
-        print(json.dumps({"variant": name, "nvcc_rc": proc.returncode, "ptxas_notes": notes}), flush=True)
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        print(json.dumps({"variant": name, "nvcc_rc": proc.returncode, "ptxas_notes": notes, "spills": spills}),
+              flush=True)
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} failed to build:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(out / "lib.so")).mrisr_flash_attn_fwd
-        fn.argtypes = fa._ENTRY_POINTS["flash_attn_fwd"]["mrisr_flash_attn_fwd"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        libs[name] = ctypes.CDLL(str(out / "lib.so"))
+    return libs
+
+
+def entry(lib: ctypes.CDLL, fn_name: str):
+    """The C entry point ``fn_name`` of a variant's library, typed as the port's wrapper types it."""
+    fn = getattr(lib, fn_name)
+    fn.argtypes = next(fns[fn_name] for fns in fa._ENTRY_POINTS.values() if fn_name in fns)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, iters: int = 30) -> dict:
@@ -166,11 +184,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_fwd_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    fns = build_variants()
+    fns = {name: entry(lib, "mrisr_flash_attn_fwd") for name, lib in build_variants(VARIANTS).items()}
     for shape in SHAPES:
         print(json.dumps(sweep_shape(fns, *shape)), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(card(), flush=True)
     return 0
 
 

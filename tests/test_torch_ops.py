@@ -8,6 +8,7 @@ of differently ordered sums unless stated otherwise.
 from __future__ import annotations
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -236,6 +237,11 @@ def _misaligned(shape, dtype=torch.bfloat16):
 _QKV = dict(q=(1, 8, 32), k=(1, 8, 32), v=(1, 8, 32))
 
 
+def _bwd(**bad):
+    """The backward kernels' other inputs (dO, lse, delta), as they take them, with ``bad`` replacing some."""
+    return dict(do=torch.zeros(1, 8, 32, dtype=torch.bfloat16), lse=torch.zeros(1, 8), delta=torch.zeros(1, 8)) | bad
+
+
 @pytest.mark.parametrize(
     "case, make, error, match",
     [
@@ -247,6 +253,16 @@ _QKV = dict(q=(1, 8, 32), k=(1, 8, 32), v=(1, 8, 32))
         ("d_48", lambda: {n: torch.zeros(1, 8, 48, dtype=torch.bfloat16) for n in _QKV}, ValueError, "D in"),
         ("float16", lambda: {n: torch.zeros(s, dtype=torch.float16) for n, s in _QKV.items()}, TypeError,
          "bfloat16 or float32"),
+        # The backward's inputs: dO goes through TMA like q, k, v; lse and delta are read by row.
+        ("do_at_storage_offset", lambda: _bwd(do=_misaligned((1, 8, 32))), ValueError, "16-byte aligned do"),
+        ("do_transposed", lambda: _bwd(do=torch.zeros(1, 32, 8, dtype=torch.bfloat16).transpose(1, 2)),
+         ValueError, "contiguous do"),
+        ("lse_at_storage_offset", lambda: _bwd(lse=_misaligned((1, 8), torch.float32)), ValueError,
+         "16-byte aligned lse"),
+        ("lse_strided", lambda: _bwd(lse=torch.zeros(1, 16)[:, ::2]), ValueError, "contiguous lse"),
+        ("delta_at_storage_offset", lambda: _bwd(delta=_misaligned((1, 8), torch.float32)), ValueError,
+         "16-byte aligned delta"),
+        ("delta_strided", lambda: _bwd(delta=torch.zeros(1, 16)[:, ::2]), ValueError, "contiguous delta"),
     ],
 )
 def test_kernel_inputs_reject_what_the_kernels_cannot_take(case, make, error, match):
@@ -257,6 +273,36 @@ def test_kernel_inputs_reject_what_the_kernels_cannot_take(case, make, error, ma
         t_flash._check_kernel_inputs(tensors["q"].shape[2], 1, **tensors)
     # The same tensors, aligned, contiguous and of a kernel's D and dtype, pass.
     t_flash._check_kernel_inputs(32, 1, **{n: torch.zeros(s, dtype=torch.bfloat16) for n, s in _QKV.items()})
+    t_flash._check_kernel_inputs(32, 1, **{n: torch.zeros(s, dtype=torch.bfloat16) for n, s in _QKV.items()},
+                                 **_bwd())
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports only the standard library)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_ANON = "_ZN50_GLOBAL__N__d04f5a53_17_flash_attn_{}_cu_2c337719"  # nvcc's anonymous namespace of a source
+
+
+@pytest.mark.parametrize("mangled, name", [
+    (_ANON.format("fwd") + "21flash_fwd_bf16_kernelILi32EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiif",
+     "flash_fwd_bf16_kernel<32>"),
+    (_ANON.format("bwd") + "24flash_bwd_dq_bf16_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiff",
+     "flash_bwd_dq_bf16_kernel<64>"),
+    (_ANON.format("bwd") + "25flash_bwd_dkv_bf16_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiff",
+     "flash_bwd_dkv_bf16_kernel<128>"),
+    (_ANON.format("bwd") + "24flash_bwd_dkv_f32_kernelILi32EEEvPKfS2_S2_S2_S2_S2_PfS3_iiff",
+     "flash_bwd_dkv_f32_kernel<32>"),
+    ("_Z12other_kernelPf", "_Z12other_kernelPf"),
+])
+def test_chip_smoke_names_the_flash_kernels_in_sass(mangled, name):
+    """The build phase counts HGMMA per kernel under these names; every bf16 forward, dQ and dK/dV
+    kernel must be recognised (the backward's two-part names included)."""
+    assert _chip_smoke().kernel_name(mangled) == name
 
 
 def test_bf16_forward_kernel_takes_positive_scale_only():

@@ -40,6 +40,7 @@ from mrisr_torch.train import steps as t_steps
 from mrisr_torch.train.precision import Policy, get_policy
 from mrisr_torch.utils.checkpoint import CheckpointManager
 from mrisr_torch.weights import load_flax_params
+from test_torch_ops import _chip_smoke
 from test_torch_resdiff import flax_random_params, to_torch
 
 TINY = dict(image_size=16, inner_channel=8, norm_groups=4)
@@ -77,15 +78,26 @@ def _recorder():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n,m,d,block", [(256, 256, 32, 128), (512, 512, 16, 256), (256, 128, 32, 128)])
-def test_flash_bwd_plain_matches_jax_kernels_and_dense_vjp(n, m, d, block):
+@pytest.mark.parametrize("n,m,d,block,extreme", [
+    pytest.param(256, 256, 32, 128, False, id="256-256-32-128"),
+    pytest.param(512, 512, 16, 256, False, id="512-512-16-256"),
+    pytest.param(256, 128, 32, 128, False, id="256-128-32-128"),
+    pytest.param(256, 128, 32, 128, True, id="256-128-32-128-extreme"),
+])
+def test_flash_bwd_plain_matches_jax_kernels_and_dense_vjp(n, m, d, block, extreme):
     """B2's plain version against the Pallas dq/dkv kernels (interpret mode) and ``jax.vjp``.
 
     atol 5e-4 is the bar ``tests/test_flash_attention.py`` holds the Pallas
     kernels to (float32 sums over up to 512 keys in different orders).
+    ``extreme``: q and k built as ``chip_smoke.py``'s extreme-score cases
+    build them, so that every score is below -100 (where a zero key past M
+    would overflow exp(-lse) in a kernel that did not mask it).
     """
     q, k, v, g = (_x(2, s, d, seed=10 + i) for i, s in enumerate((n, m, m, n)))
     scale = 1.0 / np.sqrt(d)
+    if extreme:
+        q, k = (t.numpy() for t in _chip_smoke().extreme_qk(torch.from_numpy(q), torch.from_numpy(k)))
+        assert (np.einsum("bnd,bmd->bnm", q, k) * scale).max() < -100.0
     jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
     out, lse = _flash_fwd_impl(jq, jk, jv, scale, block, block, interpret=True)
     kern = _flash_backward(jq, jk, jv, out, lse, jg, scale, block, interpret=True)
@@ -96,6 +108,7 @@ def test_flash_bwd_plain_matches_jax_kernels_and_dense_vjp(n, m, d, block):
     to, tlse = t_flash.flash_attention_fwd(tq, tk, tv, scale)
     got = t_flash.flash_attention_bwd(tq, tk, tv, to, tlse, tg, scale)
     for name, a, w_kern, w_dense in zip(("dq", "dk", "dv"), got, kern, dense):
+        assert torch.isfinite(a).all(), name
         np.testing.assert_allclose(a.numpy(), np.asarray(w_kern), atol=5e-4, err_msg=name)
         np.testing.assert_allclose(a.numpy(), np.asarray(w_dense), atol=5e-4, err_msg=name)
     assert t_flash.flash_attention_bwd_dq.launches == t_flash.flash_attention_bwd_dkv.launches == 0
