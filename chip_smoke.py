@@ -139,30 +139,47 @@ def cuda_ms(torch, fn, min_total_ms=200.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernel_part, iters=20, attempts=3):
-    """Mean device time per call of the kernels whose name holds ``kernel_part``, from ``torch.profiler``;
-    with ``kernel_part=None``, of every device event a call makes (each makes at least one).
+def window_ms(seen, iters):
+    """``(per_call, ms)`` from one profiler window of ``iters`` calls, or None when the window is refused.
 
-    The tracer may miss launches at the start of a window, or a whole window;
-    a window counts when it saw most of the calls.  None when no attempt did.
+    ``seen`` maps each kind of device event to ``(count, total device us)``.  The tracer may miss events
+    at the start of a window, so the window's total is not used: each kind counts at its mean time per
+    event seen, times ``per_call[kind]``, the number of times one call makes it.  That number is the
+    count over ``iters`` rounded up.  The window is refused when a kind saw half of its events or fewer
+    (the rounding could then be wrong), or when it saw no event at all.
+    """
+    per_call = {key: -(-count // iters) for key, (count, _) in seen.items()}
+    if not seen or any(2 * count <= (2 * per_call[key] - 1) * iters for key, (count, _) in seen.items()):
+        return None
+    return per_call, sum(total / count * per_call[key] for key, (count, total) in seen.items()) / 1e3
+
+
+def device_ms(torch, fn, kernel_part=None, iters=20, attempts=4):
+    """Mean device time per call, from ``torch.profiler``: of the kernels whose name holds ``kernel_part``,
+    or with ``kernel_part=None`` of every device event a call makes.
+
+    Each window of ``iters`` calls is read by :func:`window_ms`.  The result is the mean of a window and
+    the last window accepted before it, once the two agree on the kinds of event and their number per
+    call (a kind the tracer missed throughout one window shows as a disagreement).  None when no two of
+    ``attempts`` windows agree.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    last = None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and (kernel_part is None or kernel_part in e.key)]
-        count = sum(e.count for e in events)
-        if kernel_part is None and count >= iters:
-            return sum(e.device_time_total for e in events) / iters / 1e3
-        if iters // 2 <= count <= iters:
-            return sum(e.device_time_total for e in events) / count / 1e3
+        got = window_ms({e.key: (e.count, e.device_time_total) for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and (kernel_part is None or kernel_part in e.key)},
+                        iters)
+        if got is not None and last is not None and got[0] == last[0]:
+            return (got[1] + last[1]) / 2
+        last = got or last
     return None
 
 

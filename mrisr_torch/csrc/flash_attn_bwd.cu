@@ -69,9 +69,8 @@
 //     (or dQ) D/2 each; with BK=128 in dQ or BQ=64 in dK/dV ptxas runs out
 //     of registers and serializes the wgmmas (C7512, with spills): 2.0-2.2x
 //     and 1.7-1.9x slower than BK=64 and BQ=32 (sweep).  At D=32 and 64,
-//     BK=64 in dQ was 2-27 % slower and BQ=128 in dK/dV (one score buffer,
-//     C7512) 13-29 % slower at D=32; three consumer warpgroups in dK/dV at
-//     D=32 (192 rows a CTA, 160 registers) -1 to 6 % slower (sweep).
+//     BK=64 in dQ was 2-27 % slower and BQ=128 in dK/dV (C7512) 13-29 %
+//     slower at D=32 (sweep).
 //   * Pipeline, per consumer (the forward's one-buffer order): issue the
 //     score pair of tile t, then the second-stage products of tile t-1; the
 //     exponentials of tile t run while those products do, and P/dS of tile t
@@ -81,14 +80,12 @@
 //     selects on every tile it cost 137 of 580 instructions a loop; 1-13 %
 //     slower at D=64, 1-6 % at D=128; sweep).  The two consumers take turns
 //     issuing on named barriers: dQ 4-24 % faster at every D, dK/dV 13-27 %
-//     at D=128 and within noise (-4 to 9 %) at D=32 and 64 (sweep).  dK/dV
-//     at D=32 issues the score pair of tile t+1 ahead of the exponentials of
-//     tile t, into a second pair of score buffers: -3 to 7 %, within noise;
-//     at D=64 there is no room for it (C7512, 50 % slower; sweep).
-//   * The bf16 packing of P and dS stays on cvt: rounding on the FP32 pipe
-//     instead (Veltkamp's split and a byte permute), so that cvt does not
-//     compete with ex2 for a shared unit, was nowhere faster and up to 30 %
-//     slower (sweep): what limits these kernels is not the conversions.
+//     at D=128 and within noise (-4 to 9 %) at D=32 and 64 (sweep).
+//   * Tried and not kept (PERF.md has the numbers): in dK/dV, the score pair
+//     of tile t+1 issued ahead of the exponentials of tile t into a second
+//     pair of score buffers (within noise at D=32, no room at D=64), and
+//     three consumer warpgroups at D=32; the bf16 packing of P and dS on the
+//     FP32 pipe instead of by cvt (nowhere faster, up to 30 % slower).
 //   * wgmma operands are pinned with fence_regs around each batch and every
 //     wgmma group is issued on a path fixed at compile time (ptxas serializes
 //     the pipeline otherwise: notes C7511/C7513/C7515).
@@ -143,17 +140,13 @@ struct DkvTiles : SwizzledRows<D> {
   // Registers a thread after setmaxnreg: the producer gives up what the
   // consumers take, from the 65536 / kThreads each starts with.
   static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr int kConsumerRegs = 240;
   // BQ: queries per Q/dO tile.  S^T and dP^T take BQ/2 registers a thread
   // each, dK and dV D/2 each: at D=128 BQ=64 leaves ptxas too few.
   static constexpr int kQueries = D == 128 ? 32 : 64;
   static constexpr int kStages = 4;
-  // The pair of tile t+1 issued ahead of the exponentials of tile t, into a
-  // second pair of score buffers (BQ more registers a thread).
-  static constexpr bool kIssueAhead = D == 32;
   // The two consumer warpgroups take turns issuing on named barriers.
   static constexpr bool kPingPong = true;
-  static_assert(!kPingPong || kConsumers == 2, "turns are taken between two consumer warpgroups");
   static constexpr int kKVBytes = kRowsKV * D * 2;   // K, and V
   static constexpr int kTileBytes = kQueries * D * 2;  // one Q (or dO) stage
   static constexpr int kVecBytes = 2 * kQueries * 4;   // one stage's lse * log2(e) and delta
@@ -452,15 +445,15 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
 
     // S^T = K Q^T and dP^T = V dO^T, all operands K-major: K and V as the
     // forward's Q, the Q and dO stages as its K.
-    auto sdp_issue = [&](float (&s_)[BQ / 2], float (&dp_)[BQ / 2], int st) {
+    auto sdp_issue = [&](int st) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<BQ>(s_, T::k_major(k_s, T::kRowsKV, wg * 64, kk),
+        wgmma_ss<BQ>(st_acc, T::k_major(k_s, T::kRowsKV, wg * 64, kk),
                      T::k_major(q_s + st * T::kTileBytes, BQ, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<BQ>(dp_, T::k_major(v_s, T::kRowsKV, wg * 64, kk),
+        wgmma_ss<BQ>(dpt, T::k_major(v_s, T::kRowsKV, wg * 64, kk),
                      T::k_major(do_s + st * T::kTileBytes, BQ, 0, kk), kk > 0);
       }
     };
@@ -473,10 +466,9 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
         wgmma_rs<D>(dk_acc, dst[kk], T::mn_major(q_s + st * T::kTileBytes, BQ, kk));
       }
     };
-    // P^T in place of S^T, dS^T in place of dP^T, then both packed to A
-    // fragments (once the previous tile's dV, dK have retired); a column is a
-    // query, whose lse * log2(e) and delta the producer put beside the stage.
-    auto grads = [&](float (&s_)[BQ / 2], float (&dp_)[BQ / 2], int st) {
+    // P^T in place of S^T, dS^T in place of dP^T; a column is a query, whose
+    // lse * log2(e) and delta the producer put beside the stage.
+    auto grads = [&](int st) {
       const float* vec = vecs + st * 2 * BQ;
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
@@ -484,15 +476,11 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
         const float2 dl = *reinterpret_cast<const float2*>(vec + BQ + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = ex2(fmaf(s_[4 * j + e], scale_log2, (e & 1) ? -l2.y : -l2.x));
-          s_[4 * j + e] = p;
-          dp_[4 * j + e] = p * (dp_[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          const float p = ex2(fmaf(st_acc[4 * j + e], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          st_acc[4 * j + e] = p;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x));
         }
       }
-    };
-    auto pack = [&](const float (&s_)[BQ / 2], const float (&dp_)[BQ / 2]) {
-      to_a_frags<BQ>(s_, pt);
-      to_a_frags<BQ>(dp_, dst);
     };
     auto fence_second = [&]() {  // the operands of dkv_issue
       fence_regs(dk_acc);
@@ -504,123 +492,45 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
     auto parity = [](int t) { return (uint32_t)((t / S) & 1); };
 
     mbar_wait(kv_full, 0);
-    auto one_buffer = [&]() {
-      // Tile 0.
-      mbar_wait(full(0), 0);
+    // Tile 0.
+    mbar_wait(full(0), 0);
+    fence_regs(st_acc);
+    fence_regs(dpt);
+    wgmma_fence();
+    sdp_issue(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st_acc);
+    fence_regs(dpt);
+    grads(0);
+    to_a_frags<BQ>(st_acc, pt);
+    to_a_frags<BQ>(dpt, dst);
+
+    // Tile t: issue S^T(t) and dP^T(t), then dV and dK of tile t - 1; P^T(t)
+    // and dS^T(t) are computed while those run and packed once they have retired.
+    for (int t = 1; t < n_tiles; ++t) {
+      mbar_wait(full(stage(t)), parity(t));
+      // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
+      // 1 + wg is this warpgroup's turn, signalled by the other one).
+      if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
       fence_regs(st_acc);
       fence_regs(dpt);
+      fence_second();
       wgmma_fence();
-      sdp_issue(st_acc, dpt, 0);
+      sdp_issue(stage(t));
       wgmma_commit();
-      wgmma_wait<0>();
+      dkv_issue(stage(t - 1));
+      wgmma_commit();
+      if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
+      wgmma_wait<1>();  // S^T(t) and dP^T(t) are ready; dV, dK of tile t - 1 may still run
       fence_regs(st_acc);
       fence_regs(dpt);
-      grads(st_acc, dpt, 0);
-      pack(st_acc, dpt);
-
-      // Tile t: issue S^T(t) and dP^T(t), then dV and dK of tile t - 1; P^T(t)
-      // and dS^T(t) are computed while those run and packed once they have retired.
-      for (int t = 1; t < n_tiles; ++t) {
-        mbar_wait(full(stage(t)), parity(t));
-        // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
-        // 1 + wg is this warpgroup's turn, signalled by the other one).
-        if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
-        fence_regs(st_acc);
-        fence_regs(dpt);
-        fence_second();
-        wgmma_fence();
-        sdp_issue(st_acc, dpt, stage(t));
-        wgmma_commit();
-        dkv_issue(stage(t - 1));
-        wgmma_commit();
-        if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
-        wgmma_wait<1>();  // S^T(t) and dP^T(t) are ready; dV, dK of tile t - 1 may still run
-        fence_regs(st_acc);
-        fence_regs(dpt);
-        grads(st_acc, dpt, stage(t));
-        wgmma_wait<0>();
-        fence_second();
-        if (lane == 0) mbar_arrive(empty(stage(t - 1)));
-        pack(st_acc, dpt);
-      }
-    };
-    if constexpr (T::kIssueAhead) {
-      // Two score buffers: the pair of tile t+1 is issued before the
-      // exponentials of tile t, so its latency hides behind them as well.
-      // Every wgmma group is issued and waited for on a path fixed at compile
-      // time, so a single tile takes the one-buffer path and the last tile
-      // its own step.
-      if (n_tiles == 1) {
-        one_buffer();
-      } else {
-        float st2[BQ / 2], dpt2[BQ / 2];
-        mbar_wait(full(0), 0);
-        mbar_wait(full(stage(1)), parity(1));
-        fence_regs(st_acc);
-        fence_regs(dpt);
-        fence_regs(st2);
-        fence_regs(dpt2);
-        wgmma_fence();
-        sdp_issue(st_acc, dpt, 0);
-        wgmma_commit();
-        sdp_issue(st2, dpt2, stage(1));
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_regs(st_acc);
-        fence_regs(dpt);
-        grads(st_acc, dpt, 0);
-        pack(st_acc, dpt);
-
-        // Tile t, its pair already issued into (cs, cdp): issue dV, dK of
-        // tile t - 1 and (ahead) the pair of tile t + 1 into (ns, ndp), compute
-        // P^T(t), dS^T(t) while they run, pack them once dV, dK have retired.
-        // `ahead` is false on the last tile only and a literal at every call.
-        auto step = [&](int t, float (&cs)[BQ / 2], float (&cdp)[BQ / 2], float (&ns)[BQ / 2],
-                        float (&ndp)[BQ / 2], bool ahead) {
-          if (ahead) mbar_wait(full(stage(t + 1)), parity(t + 1));
-          if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
-          fence_second();
-          fence_regs(ns);
-          fence_regs(ndp);
-          wgmma_fence();
-          dkv_issue(stage(t - 1));
-          wgmma_commit();
-          if (ahead) {
-            sdp_issue(ns, ndp, stage(t + 1));
-            wgmma_commit();
-          }
-          if (T::kPingPong && !(wg == 1 && !ahead)) named_bar_arrive(2 - wg, 256);
-          if (ahead) {  // the pair of tile t is ready
-            wgmma_wait<2>();
-          } else {
-            wgmma_wait<1>();
-          }
-          fence_regs(cs);
-          fence_regs(cdp);
-          grads(cs, cdp, stage(t));
-          if (ahead) {  // dV, dK of tile t - 1 have retired
-            wgmma_wait<1>();
-          } else {
-            wgmma_wait<0>();
-          }
-          fence_second();
-          if (lane == 0) mbar_arrive(empty(stage(t - 1)));
-          pack(cs, cdp);
-        };
-        int t = 1;
-        for (; t + 2 < n_tiles; t += 2) {
-          step(t, st2, dpt2, st_acc, dpt, true);
-          step(t + 1, st_acc, dpt, st2, dpt2, true);
-        }
-        if (t + 1 < n_tiles) {
-          step(t, st2, dpt2, st_acc, dpt, true);
-          step(t + 1, st_acc, dpt, st2, dpt2, false);
-        } else {
-          step(t, st2, dpt2, st_acc, dpt, false);
-        }
-      }
-    } else {
-      one_buffer();
+      grads(stage(t));
+      wgmma_wait<0>();
+      fence_second();
+      if (lane == 0) mbar_arrive(empty(stage(t - 1)));
+      to_a_frags<BQ>(st_acc, pt);
+      to_a_frags<BQ>(dpt, dst);
     }
     fence_second();
     wgmma_fence();

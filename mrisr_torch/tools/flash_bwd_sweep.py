@@ -12,24 +12,14 @@ last, the card's name and power limit.
 Variants, each an alternative to one choice of the design:
 
 * ``design``: the source as it is (both kernels: the consumers take turns;
-  dK/dV: the score pair issued ahead at D=32; dQ: 128 keys a tile, 64 at
-  D=128; dK/dV: 64 queries a tile, 32 at D=128);
+  dQ: 128 keys a tile, 64 at D=128; dK/dV: 64 queries a tile, 32 at D=128);
 * ``no_pingpong``: no turns in either kernel;
-* ``dkv_one_buffer`` / ``dkv_ahead_d64``: dK/dV issues the score pair of
-  tile t+1 ahead at no D / at D=32 and D=64;
-* ``dkv_consumers3_d32``: dK/dV at D=32 with three consumer warpgroups
-  (192 K/V rows a CTA, 160 registers a consumer thread, one score buffer,
-  no turns);
 * ``dkv_bq128_d32`` / ``dkv_bq64_d128``: dK/dV walks 128 queries a tile at
-  D=32 (one score buffer: no room for two) / 64 at D=128;
+  D=32 / 64 at D=128;
 * ``dq_bk64`` / ``dq_bk128_d128``: dQ walks 64 keys a tile at every D /
   128 at D=128;
 * ``dq_mask_in_loop``: dQ's last tile inside the loop (its key mask then
   runs, as selects, on every tile);
-* ``dq_fp32_round_half`` / ``dq_fp32_round_all``: dQ rounds half / all of
-  dS to bf16 on the FP32 pipe (Veltkamp's split and a byte permute) instead
-  of by cvt, which shares its unit with ex2;
-* ``dkv_fp32_round_all``: dK/dV rounds P^T and dS^T on the FP32 pipe;
 * ablations, timed only (their results are wrong): ``ablate_dq_exp`` and
   ``ablate_dkv_exp`` drop the exponentials (the FFMA before each stays),
   ``ablate_dkv_second`` drops dK/dV's second-stage products (dV, dK).
@@ -47,71 +37,21 @@ from mrisr_torch.tools.flash_fwd_sweep import build_variants, card, entry
 
 SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4096, 4096, 128), (8, 16384, 256, 32)]
 
-_TURNS = ("static constexpr bool kPingPong = true;", "static constexpr bool kPingPong = false;")
-# The bf16 rounding of P and dS on the FP32 pipe instead of by cvt (which shares its unit with
-# ex2): Veltkamp's split, x * (2^16 + 1) minus (itself minus x), keeps the top 8 significant bits
-# of x (the _rn intrinsics keep it from being contracted into an FMA), and a byte permute takes
-# the two high halves.  The first `steps` k-steps of a tile go this way, the rest by cvt.
-_FP32_ROUND = ('#include "hopper.cuh"\n\nnamespace {\n', '''#include "hopper.cuh"
-
-namespace {
-
-__device__ __forceinline__ uint32_t pack_bf16_fp32(float lo, float hi) {
-  const float gl = __fmul_rn(lo, 65537.f), gh = __fmul_rn(hi, 65537.f);
-  return __byte_perm(__float_as_uint(__fsub_rn(gl, __fsub_rn(gl, lo))),
-                     __float_as_uint(__fsub_rn(gh, __fsub_rn(gh, hi))), 0x7632);
-}
-
-template <int N, int steps>
-__device__ __forceinline__ void to_a_frags_fp32(const float (&s)[N / 2], uint32_t (&p)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * kk + h;
-      p[kk][2 * h] = kk < steps ? pack_bf16_fp32(s[4 * j], s[4 * j + 1]) : pack_bf16(s[4 * j], s[4 * j + 1]);
-      p[kk][2 * h + 1] =
-          kk < steps ? pack_bf16_fp32(s[4 * j + 2], s[4 * j + 3]) : pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-    }
-  }
-}
-''')
-
-
-def _dq_pack(steps: str) -> list:
-    """dQ's two packings of dS (tile 0, the loop) with the first ``steps`` k-steps on the FP32 pipe."""
-    return [("to_a_frags<BK>(dp, ds);", f"to_a_frags_fp32<BK, {steps}>(dp, ds);")] * 2
-
-
-_DKV_PACK = ("      to_a_frags<BQ>(s_, pt);\n      to_a_frags<BQ>(dp_, dst);\n",
-             "      to_a_frags_fp32<BQ, BQ / 16>(s_, pt);\n      to_a_frags_fp32<BQ, BQ / 16>(dp_, dst);\n")
-_DKV_SECOND = """        wgmma_rs<D>(dv_acc, pt[kk], T::mn_major(do_s + st * T::kTileBytes, BQ, kk));
-        wgmma_rs<D>(dk_acc, dst[kk], T::mn_major(q_s + st * T::kTileBytes, BQ, kk));
-"""
+_TURNS = ("kPingPong = true;", "kPingPong = false;")
+_DKV_SECOND = """wgmma_rs<D>(dv_acc, pt[kk], T::mn_major(do_s + st * T::kTileBytes, BQ, kk));
+        wgmma_rs<D>(dk_acc, dst[kk], T::mn_major(q_s + st * T::kTileBytes, BQ, kk));"""
 VARIANTS = {
     "design": [],
     "no_pingpong": [_TURNS, _TURNS],  # the first occurrence is dQ's, then dK/dV's
-    "dkv_one_buffer": [("kIssueAhead = D == 32;", "kIssueAhead = false;")],
-    "dkv_ahead_d64": [("kIssueAhead = D == 32;", "kIssueAhead = D <= 64;")],
-    # 128 queries leave no room for a second pair of score buffers: one buffer.
-    "dkv_bq128_d32": [("kQueries = D == 128 ? 32 : 64;", "kQueries = D == 128 ? 32 : (D == 32 ? 128 : 64);"),
-                      ("kIssueAhead = D == 32;", "kIssueAhead = false;")],
-    "dkv_consumers3_d32": [("static constexpr int kConsumers = 2;               // consumer warpgroups, 64 K/V",
-                            "static constexpr int kConsumers = D == 32 ? 3 : 2;  // consumer warpgroups, 64 K/V"),
-                           ("kIssueAhead = D == 32;", "kIssueAhead = false;"),
-                           ("static constexpr bool kPingPong = true;\n  static_assert",
-                            "static constexpr bool kPingPong = kConsumers == 2;\n  static_assert")],
+    "dkv_bq128_d32": [("kQueries = D == 128 ? 32 : 64;", "kQueries = D == 128 ? 32 : (D == 32 ? 128 : 64);")],
     "dkv_bq64_d128": [("kQueries = D == 128 ? 32 : 64;", "kQueries = 64;")],
     "dq_bk64": [("kKeys = D == 128 ? 64 : 128;", "kKeys = 64;")],
     "dq_bk128_d128": [("kKeys = D == 128 ? 64 : 128;", "kKeys = 128;")],
-    "dq_mask_in_loop": [("for (int t = 1; t < n_tiles - 1; ++t) step(t, false);\n    if (n_tiles > 1) step(n_tiles - 1, ragged);",
+    "dq_mask_in_loop": [("for (int t = 1; t < n_tiles - 1; ++t) step(t, false); if (n_tiles > 1) step(n_tiles - 1, ragged);",
                          "for (int t = 1; t < n_tiles; ++t) step(t, ragged && t == n_tiles - 1);")],
-    "dq_fp32_round_half": [_FP32_ROUND, *_dq_pack("BK / 32")],
-    "dq_fp32_round_all": [_FP32_ROUND, *_dq_pack("BK / 16")],
-    "dkv_fp32_round_all": [_FP32_ROUND, _DKV_PACK],
     # Ablations, for where the time goes (wrong results: timed only).
     "ablate_dq_exp": [("ex2(fmaf(s[4 * j", "(fmaf(s[4 * j")] * 4,  # the four scores of an n-block
-    "ablate_dkv_exp": [("const float p = ex2(fmaf(s_[4 * j + e]", "const float p = (fmaf(s_[4 * j + e]")],
+    "ablate_dkv_exp": [("p = ex2(fmaf(st_acc[4 * j + e]", "p = (fmaf(st_acc[4 * j + e]")],
     "ablate_dkv_second": [(_DKV_SECOND, "")],
 }
 

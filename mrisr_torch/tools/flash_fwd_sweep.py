@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -102,6 +103,20 @@ VARIANTS = {
 }
 
 
+def apply_edits(src: str, edits: list, name: str = "") -> str:
+    """``src`` with each ``(anchor, replacement)`` of ``edits`` applied in turn to the anchor's first match.
+
+    Anchors match on code tokens: whitespace between two tokens of the anchor matches any whitespace,
+    or none, in the source.  Raises when an anchor is not found.
+    """
+    for old, new in edits:
+        anchor = r"\s*".join(re.escape(tok) for tok in re.findall(r"\w+|\S", old))
+        src, found = re.subn(anchor, lambda _, new=new: new.strip(), src, count=1)
+        if not found:
+            raise RuntimeError(f"variant {name}: anchor not in the source: {old!r}")
+    return src
+
+
 def build_variants(variants: dict, source: str = "flash_attn_fwd") -> dict:
     """Build every variant of ``csrc/<source>.cu`` (``{name: [(anchor, replacement), ...]}``) at once.
 
@@ -114,12 +129,8 @@ def build_variants(variants: dict, source: str = "flash_attn_fwd") -> dict:
     for name, edits in variants.items():
         out = root / name
         shutil.copytree(_build.CSRC, out)
-        src = (out / f"{source}.cu").read_text()
-        for old, new in edits:
-            if src.count(old) < 1:
-                raise RuntimeError(f"variant {name}: anchor not in the source: {old!r}")
-            src = src.replace(old, new, 1)
-        (out / f"{source}.cu").write_text(src)
+        src = out / f"{source}.cu"
+        src.write_text(apply_edits(src.read_text(), edits, name))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / f"{source}.cu")]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}

@@ -305,6 +305,48 @@ def test_chip_smoke_names_the_flash_kernels_in_sass(mangled, name):
     assert _chip_smoke().kernel_name(mangled) == name
 
 
+@pytest.mark.parametrize("seen, expect", [
+    ({"k": (20, 200.0)}, ({"k": 1}, 0.01)),
+    # the first 3 events of kind "a" and 1 of "b" missed: each kind at its mean, times its number a call
+    ({"a": (17, 170.0), "b": (39, 78.0)}, ({"a": 1, "b": 2}, 0.014)),
+    ({"k": (10, 100.0)}, None),  # half missed: 1 a call, or 2 with three quarters missed
+    ({"a": (20, 200.0), "b": (30, 60.0)}, None),
+    ({}, None),
+])
+def test_chip_smoke_reads_a_profiler_window(seen, expect):
+    """Device time per call from a window of 20 calls whose first events the tracer may have missed."""
+    got = _chip_smoke().window_ms(seen, 20)
+    assert got == expect if expect is None else (got[0] == expect[0] and got[1] == pytest.approx(expect[1]))
+
+
+def _sweep_variants():
+    from mrisr_torch.tools import flash_bwd_sweep, flash_fwd_sweep
+
+    return [(source, name, edits) for source, tool in (("flash_attn_fwd", flash_fwd_sweep),
+                                                      ("flash_attn_bwd", flash_bwd_sweep))
+            for name, edits in tool.VARIANTS.items()]
+
+
+@pytest.mark.parametrize("source, name, edits", _sweep_variants(), ids=lambda x: x if isinstance(x, str) else "")
+def test_sweep_variants_apply_to_the_sources(source, name, edits):
+    """Every design variant of the two sweeps finds its anchors in the checked-in source and changes it."""
+    from mrisr_torch.tools.flash_fwd_sweep import apply_edits
+
+    src = (REPO / "mrisr_torch" / "csrc" / f"{source}.cu").read_text()
+    out = apply_edits(src, edits, name)
+    assert (out == src) == (not edits)
+
+
+def test_sweep_anchors_match_on_code_tokens():
+    from mrisr_torch.tools.flash_fwd_sweep import apply_edits
+
+    src = "  static constexpr int kKeys=128;   // keys a tile\n  int x = kKeys;\n"
+    assert apply_edits(src, [("kKeys = 128;", "kKeys = 64;")]) == (
+        "  static constexpr int kKeys = 64;   // keys a tile\n  int x = kKeys;\n")
+    with pytest.raises(RuntimeError, match="anchor not in the source"):
+        apply_edits(src, [("kKeys = 256;", "kKeys = 64;")], "v")
+
+
 def test_bf16_forward_kernel_takes_positive_scale_only():
     """The bf16 kernel folds the scale into a row max of raw scores, so it must be > 0."""
     q = torch.zeros(1, 8, 32, dtype=torch.bfloat16)
