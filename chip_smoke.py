@@ -12,16 +12,18 @@ result.  Each phase prints JSON lines:
 2. ``build``: seconds to build the kernels, the ptxas register report (no
    spills, and no serialized wgmma pipeline -- ptxas's "Performance Loss"
    notes -- in either CUDA library), and the HGMMA (wgmma) instruction count
-   of each bf16 forward, dQ and dK/dV kernel from ``cuobjdump -sass`` (none
-   may be 0);
+   of each bf16 forward, dQ and dK/dV kernel and each fp32 dQ and dK/dV
+   kernel (3xTF32) from ``cuobjdump -sass`` (none of the 15 may be 0);
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and fp32 (plus ragged shapes, and ragged
    shapes where every score is below -100), with its time beside its bound,
    the plain version's time and one PyTorch library call's time (timed only;
    the port never calls it); for the flash kernels also the kernel's own
    device time (``torch.profiler``) and the wrapper's host microseconds per
-   call; the backward's results bitwise equal over two calls; and gradients
-   through the autograd function against the direct backward call;
+   call, and for fp32 a tensor-core (3xTF32) bound beside the FMA bound and
+   the device time of the backward's 3xTF32 operand prep; the backward's
+   results bitwise equal over two calls; and gradients through the autograd
+   function against the direct backward call;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
    through ``ResDiffPipeline.super_resolve``, in the fast (ca_kv_pool=8) and
    exact (ca_kv_pool=0) profiles, with the kernels' launch counts checked,
@@ -32,8 +34,8 @@ result.  Each phase prints JSON lines:
 6. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
    EMA 0.999) through ``make_resdiff_train_step``: 3 in fp32, 3 with the bf16
    policy, 1 with bf16 and remat, each with its launch counts, loss,
-   parameter and EMA movement, ms and peak memory; then one traced bf16 step
-   (``train_profile``);
+   parameter and EMA movement, ms and peak memory; then one traced step of
+   each policy (``train_profile``, bf16 and float32);
 7. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
    dropout 0, kernels on) against the CPU plain path, per parameter.
 
@@ -53,6 +55,8 @@ import time
 # the tensor cores, and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+# TF32 on the tensor cores; a 3xTF32 product takes three passes at this rate.
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # Approximate exp throughput of the special-function units (informational).
 PEAK_EXPS = 3.7e12
@@ -200,6 +204,17 @@ def bound(n_bytes, n_ops, peak_ops):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def set_bounds(rec, n_bytes, flops, bf16):
+    """``bound_ms``/``bound_by`` of a flash record: bf16 on the tensor cores; fp32 as 3xTF32 on the tensor
+    cores (three passes of every product, ``bound_kind``), with the FMA bound (``fma_bound_ms``) beside it."""
+    if bf16:
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops, PEAK_BF16_FLOPS)
+    else:
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 3.0 * flops, PEAK_TF32_FLOPS)
+        rec["bound_kind"] = "3xtf32_tensor_cores"
+        rec["fma_bound_ms"], rec["fma_bound_by"] = bound(n_bytes, flops, PEAK_FP32_FLOPS)
+
+
 def phase_device(torch):
     if torch.cuda.device_count() < 1:
         raise RuntimeError("no CUDA device")
@@ -266,17 +281,19 @@ def phase_build(torch):
     ptxas = {name: _build.ptxas_report(name) for name in flash_attention.LIBRARIES}
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
-    # The bf16 forward, dQ and dK/dV kernels (D = 32, 64, 128 each) are built
-    # on wgmma: the SASS of each must hold HGMMA instructions.
+    # The bf16 forward, dQ and dK/dV kernels and the fp32 (3xTF32) dQ and
+    # dK/dV kernels (D = 32, 64, 128 each) are built on wgmma: the SASS of
+    # each must hold HGMMA instructions.
     hgmma = {k: n for lib in flash_attention.LIBRARIES
-             for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items() if "bf16" in k}
+             for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items()
+             if "bf16" in k or k.startswith(("flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
     emit({"phase": "build", "flash_attn_nvcc_s": t1 - t0, "sources": list(flash_attention.LIBRARIES),
           "group_norm_silu_triton_s": t2 - t1, "triton": triton.__version__,
-          "kernels_with_spills": spills, "flash_bf16_hgmma": hgmma, "ptxas": ptxas})
+          "kernels_with_spills": spills, "flash_hgmma": hgmma, "ptxas": ptxas})
     # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
     serialized = [ln for lines in ptxas.values() for ln in lines if "Performance Loss" in ln]
-    if len(hgmma) != 9 or not all(hgmma.values()) or any(spills.values()) or serialized:
-        raise AssertionError(f"build: bf16 HGMMA counts {hgmma}, kernels with spills {spills}, "
+    if len(hgmma) != 15 or not all(hgmma.values()) or any(spills.values()) or serialized:
+        raise AssertionError(f"build: HGMMA counts {hgmma}, kernels with spills {spills}, "
                              f"ptxas performance notes {serialized}")
 
 
@@ -316,9 +333,7 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
     if timed:
         size = q.element_size()
         n_bytes = (2 * b * n * d + 2 * b * m * d) * size + 4 * b * n
-        flops = 4.0 * b * n * m * d
-        rec["bound_ms"], rec["bound_by"] = bound(
-            n_bytes, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        set_bounds(rec, n_bytes, 4.0 * b * n * m * d, dtype == torch.bfloat16)
         rec["exp_floor_ms"] = b * n * m / PEAK_EXPS * 1e3
         rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale))
         # The kernel alone (device time) and the wrapper's host time per call:
@@ -369,16 +384,16 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
                                         "max_abs_err": max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])}}
     if timed:
         size = q.element_size()
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+        bf16 = dtype == torch.bfloat16
         delta = (do.float() * o.float()).sum(dim=-1)
         dq_rec, dkv_rec = recs["flash_attention_bwd_dq"], recs["flash_attention_bwd_dkv"]
         # Each input read once, each output written once; three products for dQ, four for dK/dV.
-        dq_rec["bound_ms"], dq_rec["bound_by"] = bound(
-            (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, peak)
-        dkv_rec["bound_ms"], dkv_rec["bound_by"] = bound(
-            (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, peak)
-        run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)  # noqa: E731
-        run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)  # noqa: E731
+        set_bounds(dq_rec, (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, bf16)
+        set_bounds(dkv_rec, (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, bf16)
+        # fp32: the kernels alone, on 3xTF32 operands made once; the pair below makes its own.
+        parts = None if bf16 else fa.tf32_parts(q, k, v, do)
+        run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, parts)  # noqa: E731
+        run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, parts)  # noqa: E731
         for rec, run, kernel_part in ((dq_rec, run_dq, "flash_bwd_dq"), (dkv_rec, run_dkv, "flash_bwd_dkv")):
             rec["ms"] = cuda_ms(torch, run)
             rec["device_ms"] = device_ms(torch, run, kernel_part)
@@ -395,6 +410,8 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
         pair = {"pair_ms": cuda_ms(torch, run_pair), "pair_device_ms": device_ms(torch, run_pair, None),
                 "plain_ms": plain_ms, "library_ms": cuda_ms(torch, run_library, max_iters=10),
                 "library_device_ms": device_ms(torch, run_library, None, iters=10)}
+        if not bf16:  # the 3xTF32 operands' device time, part of the pair's
+            pair["prep_device_ms"] = device_ms(torch, lambda: fa.tf32_parts(q, k, v, do), None)
         for rec in (dq_rec, dkv_rec):
             rec.update(exp_floor_ms=b * n * m / PEAK_EXPS * 1e3, **pair,
                        plain_and_library_cover="dq, dk and dv together")
@@ -654,9 +671,21 @@ def phase_train(torch):
                 raise AssertionError(f"training step failed its checks (expected launches {expect}): {rec}")
             state = new
 
-    # One more bf16 + remat-off step under the profiler: where the step's time goes.
+    # One more step of each policy (remat off) under the profiler: where the step's time goes.
+    for precision in ("bfloat16", "float32"):
+        profile_step(torch, unet, sched, batch, precision)
+    return totals
+
+
+def profile_step(torch, unet, sched, batch, precision):
+    """One traced training step after two warm ones (``train_profile``): device busy time, idle share and
+    the largest kernels."""
+    from mrisr_torch.train.precision import get_policy
+    from mrisr_torch.train.state import create_train_state, make_optimizer
+    from mrisr_torch.train.steps import make_resdiff_train_step, step_generator
+
     state = create_train_state(unet, make_optimizer(TRAIN_LR), ema_decay=TRAIN_EMA)
-    step = make_resdiff_train_step(unet, sched, get_policy("bfloat16"))
+    step = make_resdiff_train_step(unet, sched, get_policy(precision))
     state, _ = step(state, batch, step_generator(6, 0, "cuda"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -665,8 +694,7 @@ def phase_train(torch):
     step_ms = (time.perf_counter() - t0) * 1e3
     rec = profile_chain(torch, lambda: step(state, batch, step_generator(6, 2, "cuda")), step_ms,
                         ranges=("group_norm_silu_backward",))
-    emit({"phase": "train_profile", "precision": "bfloat16", "step_ms": step_ms, **rec})
-    return totals
+    emit({"phase": "train_profile", "precision": precision, "step_ms": step_ms, **rec})
 
 
 def phase_grad(torch):

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX for flash_attn_fwd.cu and
 // flash_attn_bwd.cu: mbarriers, TMA tensor loads and the host code that encodes
-// their tensor maps, warpgroup matrix multiplies (wgmma) and their
-// shared-memory descriptors, register reallocation between warpgroups.
+// their tensor maps, warpgroup matrix multiplies (wgmma, bf16 and tf32) and
+// their shared-memory descriptors, register reallocation between warpgroups.
 #pragma once
 
 #include <cuda.h>
@@ -147,6 +147,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
   }
 }
 
+// `x`, hidden from the optimizer: descriptors built from it are computed where
+// a wgmma group is issued instead of hoisted out of the loop into registers
+// (with a single ring stage every descriptor of a kernel is loop-invariant,
+// and at D=128 the hoisted ones spill).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // Accumulator layout (f32, m64nN): thread `lane` of warp w of the warpgroup
 // holds, for each 8-column block j, d[4j + 0..1] at row 16w + lane/4, columns
 // 8j + 2(lane%4) + 0..1, and d[4j + 2..3] at row 16w + lane/4 + 8.  The A
@@ -279,6 +288,138 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
 }
 
+// D[64 x 16] (+)= A[64 x 8] B[8 x 16] in tf32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32] in tf32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] in tf32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32] in tf32: A in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] in tf32: A in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128] in tf32: A in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  if constexpr (N == 16) wgmma_tf32_ss_n16(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_tf32_ss_n32(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_tf32_ss_n64(d, desc_a, desc_b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int scale_d = 1) {
+  if constexpr (N == 32) wgmma_tf32_rs_n32(d, a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_tf32_rs_n128(d, a, desc_b, scale_d);
+}
+
+// 3xTF32: x = hi + lo, each rounded to tf32 (to nearest, ties away from
+// zero), and a b ~ hi hi + hi lo + lo hi.  The tensor cores drop the 13 low
+// mantissa bits of a raw fp32 operand (tools/tf32_probe.py checks it on the
+// card): a truncated split would bias every product toward zero, so both
+// parts are rounded first and reach the tensor cores exact.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// acc += part, element by element, in fp32 (rounded to nearest): the tensor
+// cores truncate as they accumulate, which over thousands of k-steps biases
+// a sum by ~1e-4, so a long sum takes each tile's product from a fresh
+// accumulator.
+template <int R>
+__device__ __forceinline__ void add_to(float (&acc)[R], const float (&part)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += part[i];
+}
+
+// An m64nN fp32 accumulator as the split tf32 A fragments of a product over
+// its N columns.  The k8 A fragment of a thread holds (row g, k t), (row g+8,
+// k t), (row g, k t+4), (row g+8, k t+4); the accumulator holds columns 2t
+// and 2t+1 of each 8-column block.  So n-block j is k-step j with its
+// reduction index permuted: column 2t at position t, 2t+1 at t+4.  The B
+// operand of the product must be permuted the same way (the transposed copies
+// that flash_attention_bwd writes).
+template <int N>
+__device__ __forceinline__ void to_tf32_frags(const float (&s)[N / 2], uint32_t (&hi)[N / 8][4],
+                                              uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    tf32_split(s[4 * j], hi[j][0], lo[j][0]);      // row g, column 2t
+    tf32_split(s[4 * j + 2], hi[j][1], lo[j][1]);  // row g + 8, column 2t
+    tf32_split(s[4 * j + 1], hi[j][2], lo[j][2]);  // row g, column 2t + 1
+    tf32_split(s[4 * j + 3], hi[j][3], lo[j][3]);  // row g + 8, column 2t + 1
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -306,30 +447,40 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Tiles of bf16 rows with D columns as TMA writes them: one box of D
-// columns (64-byte rows, 64B swizzle at D=32; 128-byte rows, 128B swizzle at
-// D=64), or at D=128 two boxes of 64 columns, one after the other.  A tile's
-// base is 1024-byte aligned.
-template <int D>
+// Tiles of rows of C elements of E bytes (bf16: E = 2, fp32: E = 4) as TMA
+// writes them: boxes of up to 128 bytes a row (128B swizzle; a 64-byte row
+// takes the 64B swizzle), one box after the other.  bf16 tiles are one box
+// of D columns at D=32 (64-byte rows) and 64 (128), two of 64 at D=128; fp32
+// tiles are boxes of 32 columns, or one of 16.  A tile's base is 1024-byte
+// aligned.  A wgmma k-step is 32 bytes of a row: 16 bf16 or 8 tf32 columns.
+template <int C, int E = 2>
 struct SwizzledRows {
-  static constexpr int kBox = D == 128 ? 64 : D;  // columns per TMA box
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kRowBytes = kBox * 2;      // bytes per row of a box: 64 or 128
+  static constexpr int kRowBytes = C * E < 128 ? C * E : 128;  // bytes per row of a box: 64 or 128
+  static constexpr int kBox = kRowBytes / E;                   // columns per TMA box
+  static constexpr int kBoxes = C / kBox;
   static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B
-  static constexpr int kSbo = 8 * kRowBytes;      // bytes between 8-row groups of a box
+  static constexpr int kSbo = 8 * kRowBytes;                   // bytes between 8-row groups of a box
+  static_assert(kRowBytes == 64 || C * E % 128 == 0, "tile width");
 
-  // K-major operand (the product sums over D): rows row0.. of a tile of
-  // `rows` rows, k-step kk (columns 16kk..16kk+15).
+  // K-major operand (the product sums over the C columns): rows row0.. of a
+  // tile of `rows` rows, k-step kk.
   __device__ static __forceinline__ uint64_t k_major(uint32_t tile, int rows, int row0, int kk) {
-    const int x = kk * 16 / kBox, col = (kk * 16) % kBox * 2;
+    const int x = kk * 32 / kRowBytes, col = kk * 32 % kRowBytes;
     return make_desc(tile + x * rows * kRowBytes + row0 * kRowBytes + col, 16, kSbo, kSwizzle);
   }
 
-  // MN-major B operand (the product sums over rows, its N is D; wgmma's
+  // MN-major B operand (bf16; the product sums over rows, its N is C; wgmma's
   // transpose bit): k-step kk is rows 16kk..16kk+15 of a tile of `rows` rows,
-  // its 64-column boxes `rows * kRowBytes` apart (the leading byte offset).
+  // its boxes `rows * kRowBytes` apart (the leading byte offset).
   __device__ static __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kk) {
     return make_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, kSbo, kSwizzle);
+  }
+
+  // TMA: rows row0.. (rows of them) and columns col0.. of a [batch, *, *] map into `tile`.
+  __device__ static __forceinline__ void load(uint32_t tile, const CUtensorMap* map, uint32_t bar, int col0,
+                                              int row0, int rows, int b) {
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) tma_load_3d(tile + x * rows * kRowBytes, map, bar, col0 + x * kBox, row0, b);
   }
 };
 
@@ -406,6 +557,25 @@ __device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2], __nv_
   }
 }
 
+// Store this thread's two rows of an m64nD fp32 accumulator (row_a and
+// row_a + 8, wgmma layout) into the row-major fp32 `out` (LD columns a row,
+// D of them stored), times f; rows >= limit are not stored.
+template <int D, int LD = D>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 2], float* out, int row_a, int limit, float f,
+                                               int t4) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    if (row_a < limit) {
+      *reinterpret_cast<float2*>(out + (size_t)row_a * LD + col) = make_float2(acc[4 * j] * f, acc[4 * j + 1] * f);
+    }
+    if (row_a + 8 < limit) {
+      *reinterpret_cast<float2*>(out + (size_t)(row_a + 8) * LD + col) =
+          make_float2(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
+    }
+  }
+}
+
 // ---- host: TMA tensor maps ------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -429,21 +599,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 [batch, rows, D] tensor, read in boxes of
-// box_rows x box_cols (box_cols * 2 bytes is the swizzle width).  The zero
-// fill past the last row happens per batch.
-bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int D, int box_cols, int box_rows) {
+// A 3-D map over a contiguous [batch, rows, cols] tensor of bf16 (elem_bytes
+// 2) or fp32 (4), read in boxes of box_rows x box_cols (box_cols * elem_bytes
+// is the swizzle width, 64 or 128 bytes).  The zero fill past the last row
+// (and column) happens per batch.
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int cols, int box_cols, int box_rows,
+                int elem_bytes = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes, (cuuint64_t)rows * cols * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
-      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+      box_cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapDataType type = elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -18,7 +18,8 @@ described in its source.
 On a CPU tensor each runs its plain version (``flash_attention_plain``,
 ``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
 (bf16 or float32, D in {32, 64, 128}; the bf16 forward takes scale > 0) or
-raises.
+raises.  The float32 backward kernels run on the tensor cores in 3xTF32:
+``flash_attention_bwd`` first makes their operands with ``tf32_parts``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,17 @@ from mrisr_torch._build import build_libraries, load_library
 KERNEL_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 PLAIN_CHUNK = 512
+# The tensor cores read an fp32 operand of a tf32 product as its bits with the
+# 13 low mantissa bits dropped (``mrisr_torch/tools/tf32_probe.py`` checks it
+# on the card).  Dropped bits would bias every product toward zero, so the
+# fp32 kernels take operands already rounded to tf32 (to nearest, ties away
+# from zero, as ``cvt.rna.tf32.f32``): ``tf32_hi`` and ``tf32_lo``.
+TF32_MASK = -(1 << 13)
+TF32_HALF = 1 << 12
+# Rows of the transposed copies are padded with zeros to a multiple of this:
+# whole tiles (of at most 64 keys or queries), whole groups of 8 for the
+# permutation, and a row stride that is a multiple of 16 bytes for TMA.
+TRANSPOSE_PAD = 64
 
 
 def flash_attention_plain(
@@ -76,6 +88,51 @@ def flash_attention_bwd_plain(
     return torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_hi(x: torch.Tensor) -> torch.Tensor:
+    """The high part of the 3xTF32 split of fp32 ``x``: ``x`` rounded to tf32 (10 mantissa bits; to
+    nearest, ties away from zero)."""
+    return ((x.view(torch.int32) + TF32_HALF) & TF32_MASK).view(torch.float32)
+
+
+def tf32_lo(x: torch.Tensor) -> torch.Tensor:
+    """The low part: ``x - tf32_hi(x)`` (exact in fp32) rounded to tf32."""
+    return tf32_hi(x - tf32_hi(x))
+
+
+def transpose_permuted(x: torch.Tensor, pad: int = TRANSPOSE_PAD) -> torch.Tensor:
+    """``[B, N, D] -> [B, D, Np]``: the B operand of a tf32 product that sums over N.
+
+    ``Np`` is N rounded up to ``pad`` (a multiple of 8), zeros past N.  Index
+    ``n = 8g + 2t + e`` (t < 4, e < 2) goes to position ``8g + 4e + t``: a
+    thread's accumulator columns 2t and 2t + 1 become its A fragment's k t and
+    t + 4 (``hopper.cuh::to_tf32_frags``), so B's rows are permuted the same way.
+    """
+    b, n, d = x.shape
+    np_ = -(-n // pad) * pad
+    if np_ != n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, np_ - n))
+    return x.reshape(b, np_ // 8, 4, 2, d).permute(0, 4, 1, 3, 2).reshape(b, d, np_)
+
+
+# The fp32 kernels' operands, in the order of the C interface's `parts`.
+TF32_PARTS = ("q_hi", "k_hi", "v_hi", "do_hi", "q_lo", "k_lo", "v_lo", "do_lo",
+              "qt", "qt_lo", "dot", "dot_lo", "kt", "kt_lo")
+
+
+def tf32_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The fp32 backward kernels' 3xTF32 operands: the high and low parts of q, k, v, do ``[B, *, D]``,
+    and those of q, do (for dK/dV) and k (for dQ) transposed by :func:`transpose_permuted`.  Plain
+    PyTorch; its device time is part of the backward's."""
+    parts = {}
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        parts[f"{name}_hi"] = tf32_hi(t)
+        parts[f"{name}_lo"] = tf32_hi(t - parts[f"{name}_hi"])
+    for name in ("q", "do", "k"):
+        parts[f"{name}t"] = transpose_permuted(parts[f"{name}_hi"])
+        parts[f"{name}t_lo"] = transpose_permuted(parts[f"{name}_lo"])
+    return {name: parts[name] for name in TF32_PARTS}
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("flash attention takes [B, N, D] tensors")
@@ -96,8 +153,8 @@ _ENTRY_POINTS = {  # library -> {C function: argument types}
         "mrisr_flash_attn_fwd": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR],
     },
     "flash_attn_bwd": {
-        "mrisr_flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [ctypes.c_float, _PTR],
-        "mrisr_flash_attn_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [ctypes.c_float, _PTR],
+        "mrisr_flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [ctypes.c_float, _PTR, _PTR],
+        "mrisr_flash_attn_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [ctypes.c_float, _PTR, _PTR],
     },
 }
 
@@ -200,16 +257,50 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         raise ValueError("tensors on different devices")
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
-    """Launch the dQ kernel: ``delta`` is ``rowsum(do * o)`` in float32, ``[B, N]``."""
+def _check_parts(q: torch.Tensor, k: torch.Tensor, parts) -> None:
+    """Raise unless ``parts`` is what :func:`tf32_parts` makes for float32 ``q``, ``k`` (None for bf16)."""
+    if q.dtype != torch.float32:
+        if parts is not None:
+            raise ValueError("the 3xTF32 parts are for float32 inputs only")
+        return
+    if parts is None or tuple(parts) != TF32_PARTS:
+        raise ValueError(f"float32 kernels take the parts {TF32_PARTS}")
+    (b, n, d), m = q.shape, k.shape[1]
+    np_, mp = (-(-x // TRANSPOSE_PAD) * TRANSPOSE_PAD for x in (n, m))
+    shapes = {"q_hi": q.shape, "do_hi": q.shape, "k_hi": k.shape, "v_hi": k.shape,
+              "q_lo": q.shape, "do_lo": q.shape, "k_lo": k.shape, "v_lo": k.shape, "qt": (b, d, np_),
+              "qt_lo": (b, d, np_), "dot": (b, d, np_), "dot_lo": (b, d, np_), "kt": (b, d, mp), "kt_lo": (b, d, mp)}
+    for name, t in parts.items():
+        if tuple(t.shape) != tuple(shapes[name]) or t.device != q.device:
+            raise ValueError(f"part {name}: {tuple(t.shape)} on {t.device}, expected {tuple(shapes[name])} on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"part {name} is {t.dtype}, expected torch.float32")
+    _check_kernel_inputs(d, b, **parts)
+
+
+def _parts_arg(q, k, v, do, parts):
+    """The C interface's ``parts``: a host array of the parts' device pointers (None for bf16), and
+    the parts, which must live until the launch is enqueued."""
+    if q.dtype == torch.float32 and parts is None:
+        parts = tf32_parts(q, k, v, do)
+    _check_parts(q, k, parts)
+    if parts is None:
+        return None, None
+    return (ctypes.c_void_p * len(TF32_PARTS))(*(parts[name].data_ptr() for name in TF32_PARTS)), parts
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, parts=None) -> torch.Tensor:
+    """Launch the dQ kernel: ``delta`` is ``rowsum(do * o)`` in float32, ``[B, N]``; ``parts`` (float32
+    only) is :func:`tf32_parts` of the inputs, made here when not given."""
     b, n, d = q.shape
     _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    ptrs, parts = _parts_arg(q, k, v, do, parts)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), stream,
+            dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention dQ kernel launch failed: cudaError {err}")
@@ -217,16 +308,17 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tenso
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, parts=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel; arguments as :func:`flash_attention_bwd_dq`."""
     b, n, d = q.shape
     _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    ptrs, parts = _parts_arg(q, k, v, do, parts)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), stream,
+            dk.data_ptr(), dv.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention dK/dV kernel launch failed: cudaError {err}")
@@ -248,10 +340,12 @@ def flash_attention_bwd(
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    # As in the reference, delta is reduced outside the kernels.
+    # As in the reference, delta is reduced outside the kernels; so are the
+    # float32 kernels' 3xTF32 parts, made once for both.
     delta = (do.float() * o.float()).sum(dim=-1)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    parts = tf32_parts(q, k, v, do) if q.dtype == torch.float32 else None
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, parts)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, parts)
     return dq, dk, dv
 
 

@@ -1,4 +1,4 @@
-"""Time design variants of the bf16 flash-attention backward (``csrc/flash_attn_bwd.cu``) on one GPU.
+"""Time design variants of the flash-attention backward (``csrc/flash_attn_bwd.cu``) on one GPU.
 
 Run from the repository root: ``python3 -m mrisr_torch.tools.flash_bwd_sweep``.
 As ``flash_fwd_sweep``: each variant is the checked-in source with a few
@@ -6,10 +6,12 @@ lines replaced, all are built at once (under
 ``mrisr_torch/.build/sweep/flash_attn_bwd/``), each variant's dQ and dK/dV
 are checked against the plain version and then timed with CUDA events in
 turns (every variant, then every variant again in reverse order) on the
-training path's shapes and two more.  It prints one JSON line per shape and,
-last, the card's name and power limit.
+training path's shapes and two more, in bf16 (the variants without a prefix)
+and in fp32 (``f32_*``; the fp32 kernels' 3xTF32 operands are made once per
+shape).  It prints one JSON line per shape and, last, the card's name and
+power limit.
 
-Variants, each an alternative to one choice of the design:
+bf16 variants, each an alternative to one choice of the design:
 
 * ``design``: the source as it is (both kernels: the consumers take turns;
   dQ: 128 keys a tile, 64 at D=128; dK/dV: 64 queries a tile, 32 at D=128);
@@ -23,6 +25,21 @@ Variants, each an alternative to one choice of the design:
 * ablations, timed only (their results are wrong): ``ablate_dq_exp`` and
   ``ablate_dkv_exp`` drop the exponentials (the FFMA before each stays),
   ``ablate_dkv_second`` drops dK/dV's second-stage products (dV, dK).
+
+fp32 (3xTF32) variants:
+
+* ``f32_no_pingpong``: no turns in either kernel;
+* ``f32_dq_bk32_d32``: dQ walks 32 keys a tile at D=32 (design 64);
+* ``f32_dkv_bq64_d32``: dK/dV walks 64 queries a tile at D=32, in 2 stages
+  (design 32 in 4);
+* ``f32_dkv_one_consumer_d64``: dK/dV at D=64 with one consumer warpgroup
+  (64 K/V rows a CTA), 32 queries a tile in 2 stages (design: two consumers,
+  16 queries in 3 stages);
+* ``f32_dq_two_consumers_d64``: dQ at D=64 with two consumers (128 Q rows
+  a CTA) and 32 keys in 2 stages (design: one consumer, 3 stages);
+* ablations, timed only: ``f32_ablate_1xtf32`` (only the hi·hi product of
+  each 3xTF32 triple), ``f32_ablate_exp`` (no exponentials, in both
+  kernels), ``f32_ablate_second`` (no dQ, dV, dK products).
 """
 from __future__ import annotations
 
@@ -36,6 +53,7 @@ from mrisr_torch.ops import flash_attention as fa
 from mrisr_torch.tools.flash_fwd_sweep import build_variants, card, entry
 
 SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4096, 4096, 128), (8, 16384, 256, 32)]
+SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128)]
 
 _TURNS = ("kPingPong = true;", "kPingPong = false;")
 _DKV_SECOND = """wgmma_rs<D>(dv_acc, pt[kk], T::mn_major(do_s + st * T::kTileBytes, BQ, kk));
@@ -54,11 +72,43 @@ VARIANTS = {
     "ablate_dkv_exp": [("p = ex2(fmaf(st_acc[4 * j + e]", "p = (fmaf(st_acc[4 * j + e]")],
     "ablate_dkv_second": [(_DKV_SECOND, "")],
 }
+_F32_DKV_TILES = ("kQueries = D == 32 ? 32 : 16;", "kStages = D == 32 ? 4 : (D == 64 ? 3 : 1);")
+_F32_TURNS = ("kPingPong = kConsumers == 2;", "kPingPong = false;")
+_3X_SS = """wgmma_tf32_ss<N>(d, a_lo, b_hi, scale_d);
+  wgmma_tf32_ss<N>(d, a_hi, b_lo, 1);
+  wgmma_tf32_ss<N>(d, a_hi, b_hi, 1);"""
+_3X_RS = """wgmma_tf32_rs<N>(d, a_lo, b_hi, scale_d);
+  wgmma_tf32_rs<N>(d, a_hi, b_lo);
+  wgmma_tf32_rs<N>(d, a_hi, b_hi);"""
+VARIANTS.update({
+    "f32_no_pingpong": [_F32_TURNS, _F32_TURNS],
+    "f32_dq_bk32_d32": [("kKeys = D == 32 ? 64 : (D == 64 ? 32 : 16);", "kKeys = D == 32 ? 32 : (D == 64 ? 32 : 16);")],
+    "f32_dkv_bq64_d32": [(_F32_DKV_TILES[0], "kQueries = D == 32 ? 64 : 16;"),
+                         (_F32_DKV_TILES[1], "kStages = D == 32 ? 2 : (D == 64 ? 3 : 1);")],
+    "f32_dkv_one_consumer_d64": [
+        ("kConsumers = 2; // At D=128 the owned tiles", "kConsumers = D == 64 ? 1 : 2; // At D=128 the owned tiles"),
+        (_F32_DKV_TILES[0], "kQueries = D == 32 ? 32 : (D == 64 ? 32 : 16);"),
+        (_F32_DKV_TILES[1], "kStages = D == 32 ? 4 : (D == 64 ? 2 : 1);")],
+    "f32_dq_two_consumers_d64": [
+        ("kConsumers = D == 32 ? 2 : 1;", "kConsumers = D == 128 ? 1 : 2;"),
+        ("kStages = D == 128 ? 2 : 3;", "kStages = D == 32 ? 3 : 2;")],
+    # Ablations, timed only.
+    "f32_ablate_1xtf32": [(_3X_SS, "wgmma_tf32_ss<N>(d, a_hi, b_hi, scale_d);"),
+                          (_3X_RS, "wgmma_tf32_rs<N>(d, a_hi, b_hi, scale_d);")],
+    # the first four anchors are bf16 dQ's (not timed here), the next four fp32 dQ's; then dK/dV's
+    "f32_ablate_exp": [("ex2(fmaf(s[4 * j", "(fmaf(s[4 * j")] * 8
+                      + [("p = ex2(fmaf(st_acc[4 * j + e]", "p = (fmaf(st_acc[4 * j + e]")] * 2,
+    "f32_ablate_second": [
+        ("""wgmma_3xtf32_rs<D>(dq_part, ds_hi[kk], ds_lo[kk], RT::k_major(kt, D, 0, kk),
+                           RT::k_major(kt + T::kTileBytes, D, 0, kk), kk > 0);""", ""),
+        ("""wgmma_3xtf32_rs<DC>(dv_part, pt_hi[kk], pt_lo[kk], walked_t(6, kk), walked_t(7, kk), kk > 0);
+        wgmma_3xtf32_rs<DC>(dk_part, ds_hi[kk], ds_lo[kk], walked_t(4, kk), walked_t(5, kk), kk > 0);""", "")],
+})
 
 
-def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, iters: int = 20) -> dict:
+def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, dtype=torch.bfloat16, iters: int = 20) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(b + n + m + d)
-    q, k, v, do = (torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16) for s in (n, m, m, n))
+    q, k, v, do = (torch.randn((b, s, d), generator=gen, device="cuda").to(dtype) for s in (n, m, m, n))
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -66,11 +116,16 @@ def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, iters: int = 20) -> d
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream().cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    bf16 = int(dtype == torch.bfloat16)
+    parts = None if bf16 else fa.tf32_parts(q, k, v, do)
+    ptrs = None if bf16 else fa._parts_arg(q, k, v, do, parts)[0]
     calls = {}
     for name, (fn_dq, fn_dkv) in fns.items():
-        calls[f"{name}/dq"] = lambda fn=fn_dq: fn(*args, dq.data_ptr(), b, n, m, d, 1, scale, stream)
-        calls[f"{name}/dkv"] = lambda fn=fn_dkv: fn(*args, dk.data_ptr(), dv.data_ptr(), b, n, m, d, 1, scale, stream)
-    rec = {"shape": [b, n, m, d], "max_abs_err": {}, "ms": {key: [] for key in calls}}
+        calls[f"{name}/dq"] = lambda fn=fn_dq: fn(*args, dq.data_ptr(), b, n, m, d, bf16, scale, ptrs, stream)
+        calls[f"{name}/dkv"] = lambda fn=fn_dkv: fn(*args, dk.data_ptr(), dv.data_ptr(), b, n, m, d, bf16, scale,
+                                                     ptrs, stream)
+    rec = {"shape": [b, n, m, d], "dtype": str(dtype).split(".")[-1], "max_abs_err": {},
+           "ms": {key: [] for key in calls}}
     for key, call in calls.items():
         if call() != 0:
             raise RuntimeError(f"{key} failed to launch")
@@ -103,7 +158,11 @@ def main() -> int:
     fns = {name: (entry(lib, "mrisr_flash_attn_bwd_dq"), entry(lib, "mrisr_flash_attn_bwd_dkv"))
            for name, lib in libs.items()}
     for shape in SHAPES:
-        print(json.dumps(sweep_shape(fns, *shape)), flush=True)
+        print(json.dumps(sweep_shape({k: f for k, f in fns.items() if not k.startswith("f32_")}, *shape)),
+              flush=True)
+    for shape in SHAPES_F32:
+        f32 = {k: f for k, f in fns.items() if k == "design" or k.startswith("f32_")}
+        print(json.dumps(sweep_shape(f32, *shape, dtype=torch.float32)), flush=True)
     print(card(), flush=True)
     return 0
 

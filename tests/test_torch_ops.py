@@ -20,7 +20,7 @@ from mrisr_tpu.diffusion import ddim as j_ddim
 from mrisr_tpu.diffusion import ddpm as j_ddpm
 from mrisr_tpu.diffusion import schedules as j_sched
 from mrisr_tpu.ops import attention as j_attn
-from mrisr_tpu.ops.flash_attention import _flash_fwd_impl
+from mrisr_tpu.ops.flash_attention import _flash_backward, _flash_fwd_impl
 from mrisr_tpu.ops.fourier import gaussian_highpass_split as j_split
 from mrisr_tpu.ops.groupnorm import _gn_silu_forward, group_norm_silu_reference
 from mrisr_tpu.ops.wavelets import haar_dwt_highpass_sum as j_dwt
@@ -345,6 +345,176 @@ def test_sweep_anchors_match_on_code_tokens():
         "  static constexpr int kKeys = 64;   // keys a tile\n  int x = kKeys;\n")
     with pytest.raises(RuntimeError, match="anchor not in the source"):
         apply_edits(src, [("kKeys = 256;", "kKeys = 64;")], "v")
+
+
+# ---------------------------------------------------------------------------
+# The fp32 backward kernels' arithmetic (3xTF32), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """An fp32 operand as the tensor cores read it (13 low mantissa bits dropped; ``tools/tf32_probe.py``)."""
+    return (x.contiguous().view(torch.int32) & t_flash.TF32_MASK).view(torch.float32).double()
+
+
+def _product(a_hi, a_lo, b_hi, b_lo, passes=3):
+    """``sum_k a[b, i, k] b[b, j, k]`` as the kernels' tf32 products take it: lo hi + hi lo + hi hi
+    (lo lo dropped), or hi hi alone with ``passes=1``; each operand as the tensor cores read it, sums
+    in float64 (the kernels add each tile's product to an fp32 sum)."""
+    out = _tf32_read(a_hi) @ _tf32_read(b_hi).transpose(1, 2)
+    if passes == 3:
+        out = out + _tf32_read(a_lo) @ _tf32_read(b_hi).transpose(1, 2) + _tf32_read(a_hi) @ _tf32_read(
+            b_lo).transpose(1, 2)
+    return out.float()
+
+
+def _split(x):
+    return t_flash.tf32_hi(x), t_flash.tf32_lo(x)
+
+
+def _tf32_backward_emulated(q, k, v, lse, do, scale, passes=3):
+    """``(dq, dk, dv)`` as the fp32 kernels compute them: every product from ``tf32_parts`` (the owned
+    and walked tiles) or split in registers (P, dS), the second-stage products over the permuted index
+    order of the transposed copies (``transpose_permuted``: a thread's accumulator columns 2t, 2t+1
+    are its A fragment's k t, t+4), exp2 with log2(e) folded in.  Keys and queries past the end are
+    zero rows of the padded copies."""
+    parts = t_flash.tf32_parts(q, k, v, do)
+    delta = (do * t_flash.flash_attention_plain(q, k, v, scale)[0]).sum(-1)
+    log2e = 1.4426950408889634
+    s = _product(parts["q_hi"], parts["q_lo"], parts["k_hi"], parts["k_lo"], passes)
+    dp = _product(parts["do_hi"], parts["do_lo"], parts["v_hi"], parts["v_lo"], passes)
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    ds = p * (dp - delta[..., None])
+    # B2a: A = dS (queries x keys) with the keys permuted as in K^T.
+    ds_perm = t_flash.transpose_permuted(ds.transpose(1, 2))
+    dq = _product(*_split(ds_perm), parts["kt"], parts["kt_lo"], passes) * scale
+    # B2b: A = P^T, dS^T (keys x queries) with the queries permuted as in dO^T, Q^T.
+    dv = _product(*_split(t_flash.transpose_permuted(p)), parts["dot"], parts["dot_lo"], passes)
+    dk = _product(*_split(t_flash.transpose_permuted(ds)), parts["qt"], parts["qt_lo"], passes) * scale
+    return dq, dk, dv
+
+
+def _within(got, want, tol):
+    """``chip_smoke.py``'s backward check: every element within atol_rms * rms(ref) + rtol * |ref|,
+    rms(err) within rms_rel * rms(ref).  Returns (worst element / its limit, rms(err) / rms(ref))."""
+    rms_ref = float(want.square().mean().sqrt())
+    err = (got - want).abs()
+    worst = float((err / (tol["atol_rms"] * rms_ref + tol["rtol"] * want.abs())).max())
+    return worst, float(err.square().mean().sqrt()) / rms_ref
+
+
+@pytest.mark.parametrize("b,n,m,d,extreme", [
+    pytest.param(2, 256, 256, 32, False, id="2-256-256-32"),
+    pytest.param(2, 128, 192, 64, False, id="2-128-192-64"),
+    pytest.param(2, 37, 5, 32, False, id="ragged-2-37-5-32"),
+    pytest.param(2, 130, 70, 128, False, id="ragged-2-130-70-128"),
+    pytest.param(2, 100, 60, 64, True, id="extreme-2-100-60-64"),
+])
+def test_tf32_backward_emulation_meets_the_fp32_limits_against_jax(b, n, m, d, extreme):
+    """The fp32 kernels' arithmetic (3xTF32 with the tensor cores' truncation, lo lo dropped, the permuted
+    second-stage order) against JAX's fp32 backward (the Pallas dq/dkv kernels in interpret mode) at the
+    unchanged ``FLASH_BWD_TOL["float32"]``.  ``extreme``: every score below -100."""
+    rng = np.random.default_rng(30 + n + m + d)
+    q, k, v, g = (rng.standard_normal((b, s, d)).astype(np.float32) for s in (n, m, m, n))
+    scale = 1.0 / np.sqrt(d)
+    if extreme:
+        q, k = (t.numpy() for t in _chip_smoke().extreme_qk(torch.from_numpy(q), torch.from_numpy(k)))
+        assert (np.einsum("bnd,bmd->bnm", q, k) * scale).max() < -100.0
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    out, lse = _flash_fwd_impl(jq, jk, jv, scale, max(n, m), max(n, m), interpret=True)
+    want = _flash_backward(jq, jk, jv, out, lse, jg, scale, max(n, m), interpret=True)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    got = _tf32_backward_emulated(*args, torch.from_numpy(np.array(lse)[:, 0]), torch.from_numpy(g), scale)
+    tol = _chip_smoke().FLASH_BWD_TOL["float32"]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        worst, rms_rel = _within(a, torch.from_numpy(np.array(w)), tol)
+        assert worst <= 1.0 and rms_rel <= tol["rms_rel"], (name, worst, rms_rel)
+
+
+def test_one_tf32_pass_falls_short_of_the_fp32_limits():
+    """Why three passes: the hi hi product alone (1xTF32) misses ``FLASH_BWD_TOL["float32"]``."""
+    rng = np.random.default_rng(31)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 256, 32)).astype(np.float32)) for _ in range(4))
+    scale = 1.0 / np.sqrt(32)
+    _, lse = t_flash.flash_attention_plain(q, k, v, scale)
+    want = t_flash.flash_attention_bwd_plain(q, k, v, t_flash.flash_attention_plain(q, k, v, scale)[0], lse, g,
+                                             scale)
+    tol = _chip_smoke().FLASH_BWD_TOL["float32"]
+    three = _tf32_backward_emulated(q, k, v, lse, g, scale)
+    one = _tf32_backward_emulated(q, k, v, lse, g, scale, passes=1)
+    for a, w in zip(three, want):
+        assert _within(a, w, tol)[1] <= tol["rms_rel"]
+    assert all(_within(a, w, tol)[1] > tol["rms_rel"] for a, w in zip(one, want))
+
+
+def _tf32_np(x: np.ndarray) -> np.ndarray:
+    """fp32 rounded to tf32 to nearest, ties away from zero, in numpy."""
+    return ((x.view(np.int32).astype(np.int64) + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
+
+
+@pytest.mark.parametrize("n,m,d", [(64, 128, 32), (37, 5, 32), (130, 70, 128), (1, 333, 64)])
+def test_tf32_parts_match_numpy(n, m, d):
+    """The prep's plain version: hi/lo split, transpose, zero pad to a multiple of 64, permutation."""
+    rng = np.random.default_rng(32)
+    arrays = {name: (rng.standard_normal((2, s, d)) * 2.0 ** rng.integers(-4, 5, (2, s, d))).astype(np.float32)
+              for name, s in (("q", n), ("k", m), ("v", m), ("do", n))}
+    parts = t_flash.tf32_parts(*(torch.from_numpy(arrays[x]) for x in ("q", "k", "v", "do")))
+    assert tuple(parts) == t_flash.TF32_PARTS
+    for name, x in arrays.items():
+        hi = _tf32_np(x)
+        lo = _tf32_np(x - hi)
+        np.testing.assert_array_equal(parts[f"{name}_hi"].numpy(), hi)
+        np.testing.assert_array_equal(parts[f"{name}_lo"].numpy(), lo)
+        assert np.abs(x - hi - lo).max() <= 2.0**-21 * np.abs(x).max()
+        if name == "v":
+            continue
+        rows = x.shape[1]
+        for suffix, src in (("t", hi), ("t_lo", lo)):
+            got = parts[f"{name}{suffix}"].numpy()
+            want = np.zeros((2, d, -(-rows // 64) * 64), np.float32)
+            for r in range(rows):
+                g8, rest = divmod(r, 8)
+                want[:, :, 8 * g8 + 4 * (rest % 2) + rest // 2] = src[:, r, :]
+            np.testing.assert_array_equal(got, want)
+
+
+def _f32_parts(n=8, m=8, d=32, **bad):
+    q, k = torch.zeros(1, n, d), torch.zeros(1, m, d)
+    return q, k, t_flash.tf32_parts(q, k, k, q) | bad
+
+
+@pytest.mark.parametrize("case, bad, error, match", [
+    ("missing", lambda p: {n: t for n, t in p.items() if n != "kt_lo"}, ValueError, "take the parts"),
+    ("wrong_shape", lambda p: p | {"qt": torch.zeros(1, 32, 8)}, ValueError, "part qt"),
+    ("bf16_part", lambda p: p | {"k_lo": p["k_lo"].to(torch.bfloat16)}, TypeError, "part k_lo"),
+    ("strided", lambda p: p | {"do_hi": torch.zeros(1, 32, 8).transpose(1, 2)}, ValueError, "contiguous do_hi"),
+    ("misaligned", lambda p: p | {"v_hi": _misaligned((1, 8, 32), torch.float32)}, ValueError,
+     "16-byte aligned v_hi"),
+])
+def test_fp32_kernel_parts_are_checked(case, bad, error, match):
+    """The fp32 kernels' ``parts`` argument: every part, of its shape, float32, contiguous and aligned."""
+    q, k, parts = _f32_parts()
+    t_flash._check_parts(q, k, parts)
+    with pytest.raises(error, match=match):
+        t_flash._check_parts(q, k, bad(parts))
+
+
+def test_fp32_kernel_parts_are_for_fp32_only():
+    q = torch.zeros(1, 8, 32)
+    with pytest.raises(ValueError, match="take the parts"):
+        t_flash._check_parts(q, q, None)
+    qb = q.to(torch.bfloat16)
+    t_flash._check_parts(qb, qb, None)
+    with pytest.raises(ValueError, match="float32 inputs only"):
+        t_flash._check_parts(qb, qb, _f32_parts()[2])
+
+
+def test_transpose_pad_matches_the_kernel_source():
+    """The transposed copies' row length is rounded up to the same multiple on both sides."""
+    src = (REPO / "mrisr_torch" / "csrc" / "flash_attn_bwd.cu").read_text()
+    assert f"constexpr int kTransposePad = {t_flash.TRANSPOSE_PAD};" in src
+    names = src[src.index("enum Part {"):].split("}")[0]
+    assert len(names.split(",")) == len(t_flash.TF32_PARTS)
 
 
 def test_bf16_forward_kernel_takes_positive_scale_only():
