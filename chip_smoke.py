@@ -3,41 +3,46 @@
 
 Run from the repository root: ``python3 chip_smoke.py``.  It builds the
 kernels from the sources in the checkout (``nvcc`` for the CUDA flash
-attention forward and backward, both sources at once; Triton for
-GroupNorm+SiLU), so nothing else needs to be built first.  It needs one CUDA
+attention forward and backward and GroupNorm+SiLU, one process per source,
+all started together), so nothing else needs to be built first.  It needs one CUDA
 card; without one, or when any phase fails, it exits non-zero and prints no
 result.  Each phase prints JSON lines:
 
 1. ``device``: the card, and its name and power limit from nvidia-smi;
 2. ``build``: seconds to build the kernels, the ptxas register report (no
    spills, and no serialized wgmma pipeline -- ptxas's "Performance Loss"
-   notes -- in either CUDA library), and the HGMMA (wgmma) instruction count
-   of each bf16 forward, dQ and dK/dV kernel and each fp32 dQ and dK/dV
-   kernel (3xTF32) from ``cuobjdump -sass`` (none of the 15 may be 0);
+   notes -- in any CUDA library), and the HGMMA (wgmma) instruction count
+   of each flash kernel, bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
+   D = 32, 64, 128, from ``cuobjdump -sass`` (none of the 18 may be 0);
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the main paths' shapes, in bf16 and fp32 (plus ragged shapes, and ragged
-   shapes where every score is below -100), with its time beside its bound,
-   the plain version's time and one PyTorch library call's time (timed only;
-   the port never calls it); for the flash kernels also the kernel's own
-   device time (``torch.profiler``) and the wrapper's host microseconds per
-   call, and for fp32 a tensor-core (3xTF32) bound beside the FMA bound and
-   the device time of the backward's 3xTF32 operand prep; the backward's
-   results bitwise equal over two calls; and gradients through the autograd
-   function against the direct backward call;
+   the main paths' shapes, in bf16 and fp32 (plus ragged shapes, ragged
+   shapes where every score is below -100, and head widths the kernels pad:
+   D = 16 and 40), with its time beside its bound, the plain version's time
+   and one PyTorch library call's time (timed only; the port never calls
+   it); the kernel's own device time (``torch.profiler``) and the wrapper's
+   host microseconds per call; for fp32 a tensor-core (3xTF32) bound beside
+   the FMA bound and the device time of the 3xTF32 operand prep (the
+   forward's also with its prep, against the library call's device time);
+   the backward's results bitwise equal over two calls; gradients through
+   the autograd function against the direct backward call; GroupNorm+SiLU
+   at all 13 shapes of the UNet;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
    through ``ResDiffPipeline.super_resolve``, in the fast (ca_kv_pool=8) and
    exact (ca_kv_pool=0) profiles, with the kernels' launch counts checked,
    then one more chain of each profile traced with ``torch.profiler``
    (``profile``: the device's busy time, idle share and largest kernels);
 5. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
-   against the plain path on the CPU;
+   against the plain path on the CPU, and the same for the reference's
+   parity-harness UNet (128^2, inner 16, 8 norm groups), whose 64^2
+   cross-attention has heads of D=16 (padded to 32);
 6. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
    EMA 0.999) through ``make_resdiff_train_step``: 3 in fp32, 3 with the bf16
    policy, 1 with bf16 and remat, each with its launch counts, loss,
    parameter and EMA movement, ms and peak memory; then one traced step of
    each policy (``train_profile``, bf16 and float32);
 7. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
-   dropout 0, kernels on) against the CPU plain path, per parameter.
+   dropout 0, kernels on) against the CPU plain path, per parameter; and
+   the same for the parity-harness UNet.
 
 Then the kernels summary line, the nvidia-smi line, and last the result line.
 ``--phases a,b`` runs only the named phases (device and build always run);
@@ -74,12 +79,20 @@ FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ra
 # Ragged shapes where every score is below -100 (extreme_qk): a zero key past
 # M would score 0 and get p = exp(-lse), which overflows.
 FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32)]
+# Head widths the kernels do not have: the wrappers pad D to 32 and 64.
+FLASH_PAD = [("pad", 2, 4096, 4096, 16), ("pad", 2, 1000, 777, 40)]
 EXTREME_MEAN_SCORE, EXTREME_NOISE = -130.0, 2.0
-GN_CASES = [  # (case, shape, groups): the chain's largest and smallest ConvBlock heads
-    ("largest", (BATCH, 96, 256, 256), 16),
-    ("smallest", (BATCH, 128, 32, 32), 16),
-]
-GN_RAGGED = [("ragged", (3, 24, 17, 19), 4), ("ragged", (1, 6, 5, 7), 3), ("ragged", (2, 512, 3, 5), 16)]
+# (case, shape, groups): the 13 shapes of the UNet's 29 ConvBlock heads at bs 8
+# (C @ H^2: 32, 64, 96 @ 256^2; 32, 64, 96, 192 @ 128^2; 64, 128, 192, 256
+# @ 64^2; 128, 256 @ 32^2), the largest first and the smallest second.
+GN_CASES = [("largest", (BATCH, 96, 256, 256), 16), ("smallest", (BATCH, 128, 32, 32), 16)] + [
+    ("chain", (BATCH, c, hw, hw), 16) for c, hw in ((32, 256), (64, 256), (32, 128), (64, 128), (96, 128),
+                                                    (192, 128), (64, 64), (128, 64), (192, 64), (256, 64),
+                                                    (256, 32))]
+# Ragged shapes (one element a unit, one CTA a span), and spans whose slices
+# do not fit shared memory (x read twice): 2 MB in bf16, 4 MB in fp32.
+GN_RAGGED = [("ragged", (3, 24, 17, 19), 4), ("ragged", (1, 6, 5, 7), 3), ("ragged", (2, 512, 3, 5), 16),
+             ("reread", (2, 64, 256, 256), 4)]
 # Stated before the run.  O is held to what it is compared with: each element
 # within o_atol_rms * rms(ref) + o_rtol * |ref|, and rms(err) within
 # o_rms_rel * rms(ref).  Over 16384 keys a typical |O| is only ~0.013, so a
@@ -106,6 +119,12 @@ FORWARD_TOL = dict(atol=2e-4, rtol=1e-3)
 # different orders through ~100 layers.
 GRAD_TOL = 1e-3
 GRAD_SIZE = 256
+# A UNet whose 64^2 cross-attention (4096 tokens) has heads of D=16: the
+# reference's parity harness (mrisr_tpu/eval/parity.py: inner 16, 8 norm
+# groups).  One flash site, 29 heads.
+NARROW = dict(image_size=128, inner_channel=16, norm_groups=8)
+NARROW_LAUNCHES = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+                   "group_norm_silu": 29}
 TRAIN_LR, TRAIN_EMA = 1e-5, 0.999
 # Launches per training step at 256^2: two CA sites with >= 4096 tokens, 29
 # ConvBlock heads; with remat the forward runs twice.
@@ -268,31 +287,27 @@ def sass_counts(so_path, opcode):
 
 
 def phase_build(torch):
-    import triton
-
     from mrisr_torch import _build
-    from mrisr_torch.ops import flash_attention, groupnorm
+    from mrisr_torch.ops import build_kernels, flash_attention, groupnorm
 
     t0 = time.perf_counter()
-    flash_attention.build()
+    build_kernels()
     t1 = time.perf_counter()
-    groupnorm.build()
-    t2 = time.perf_counter()
-    ptxas = {name: _build.ptxas_report(name) for name in flash_attention.LIBRARIES}
+    libraries = flash_attention.LIBRARIES + groupnorm.LIBRARIES
+    ptxas = {name: _build.ptxas_report(name) for name in libraries}
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
-    # The bf16 forward, dQ and dK/dV kernels and the fp32 (3xTF32) dQ and
-    # dK/dV kernels (D = 32, 64, 128 each) are built on wgmma: the SASS of
-    # each must hold HGMMA instructions.
+    # Every flash kernel -- bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
+    # D = 32, 64, 128 -- is built on wgmma: the SASS of each must hold HGMMA
+    # instructions.
     hgmma = {k: n for lib in flash_attention.LIBRARIES
              for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items()
-             if "bf16" in k or k.startswith(("flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
-    emit({"phase": "build", "flash_attn_nvcc_s": t1 - t0, "sources": list(flash_attention.LIBRARIES),
-          "group_norm_silu_triton_s": t2 - t1, "triton": triton.__version__,
+             if k.startswith(("flash_fwd_", "flash_bwd_"))}
+    emit({"phase": "build", "nvcc_s": t1 - t0, "sources": list(libraries),
           "kernels_with_spills": spills, "flash_hgmma": hgmma, "ptxas": ptxas})
     # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
     serialized = [ln for lines in ptxas.values() for ln in lines if "Performance Loss" in ln]
-    if len(hgmma) != 15 or not all(hgmma.values()) or any(spills.values()) or serialized:
+    if len(hgmma) != 18 or not all(hgmma.values()) or any(spills.values()) or serialized:
         raise AssertionError(f"build: HGMMA counts {hgmma}, kernels with spills {spills}, "
                              f"ptxas performance notes {serialized}")
 
@@ -339,11 +354,18 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
         # The kernel alone (device time) and the wrapper's host time per call:
         # where ms is near host_us and well above device_ms, the wrapper sets the time.
         rec["device_ms"] = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale), "flash_fwd_")
-        rec["host_us"] = host_us(torch, lambda: fa.flash_attention_fwd(q, k, v, scale))
+        # fp32 makes its operands first (some 20 launches a call): few calls, so the launch queue never
+        # fills and the enqueue is not held back by the device.
+        rec["host_us"] = host_us(torch, lambda: fa.flash_attention_fwd(q, k, v, scale),
+                                 iters=200 if dtype == torch.bfloat16 else 20)
         rec["plain_ms"] = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, scale), max_iters=10)
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]  # [B, 1 head, N, D]: fused backends take 4-D
-        rec["library_ms"] = cuda_ms(
-            torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), max_iters=10)
+        run_library = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
+        rec["library_ms"] = cuda_ms(torch, run_library, max_iters=10)
+        if dtype == torch.float32:  # the 3xTF32 operands are made in every call: "fwd with prep"
+            rec["prep_device_ms"] = device_ms(torch, lambda: fa.tf32_fwd_parts(q, k, v), None)
+            rec["with_prep_device_ms"] = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale), None)
+            rec["library_device_ms"] = device_ms(torch, run_library, None, iters=10)
     emit(rec)
     if not ok:
         raise AssertionError(f"flash attention disagrees with its plain version: {rec}")
@@ -442,7 +464,7 @@ def check_flash_autograd(torch):
         raise AssertionError("gradients through flash_attention differ from flash_attention_bwd")
 
 
-def check_gn(torch, F, dtype, case, shape, groups, timed):
+def check_gn(torch, F, dtype, case, shape, groups, timed, backward=False):
     from mrisr_torch.ops import groupnorm as gn
 
     gen = torch.Generator(device="cuda").manual_seed(sum(shape) + groups)
@@ -466,10 +488,16 @@ def check_gn(torch, F, dtype, case, shape, groups, timed):
         numel = x.numel()
         rec["bound_ms"], rec["bound_by"] = bound(
             2 * numel * x.element_size() + 2 * c * w.element_size(), 10.0 * numel, PEAK_FP32_FLOPS)
-        rec["ms"] = cuda_ms(torch, lambda: gn.group_norm_silu(x, w, bias, groups, 1e-5))
+        run = lambda: gn.group_norm_silu(x, w, bias, groups, 1e-5)  # noqa: E731
+        run_library = lambda: F.silu(F.group_norm(x, groups, w, bias, 1e-5))  # noqa: E731
+        rec["plan"] = gn.gn_plan(tuple(shape), groups, x.element_size())._asdict()
+        rec["ms"] = cuda_ms(torch, run)
+        rec["device_ms"] = device_ms(torch, run, None)
+        rec["host_us"] = host_us(torch, run)
         rec["plain_ms"] = cuda_ms(torch, lambda: gn.group_norm_silu_plain(x, w, bias, groups, 1e-5))
-        rec["library_ms"] = cuda_ms(torch, lambda: F.silu(F.group_norm(x, groups, w, bias, 1e-5)))
-        # The backward has no kernel (nor has the reference's): the exact composition, timed alone.
+        rec["library_ms"] = cuda_ms(torch, run_library)
+        rec["library_device_ms"] = device_ms(torch, run_library, None)
+    if backward:  # the backward has no kernel (nor has the reference's): the exact composition, timed alone
         leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
         out = gn.group_norm_silu(*leaves, groups, 1e-5)
         rec["backward_composition_ms"] = cuda_ms(
@@ -486,13 +514,14 @@ def phase_kernels(torch):
     recs = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
             "group_norm_silu": []}
     for dtype in (torch.bfloat16, torch.float32):
-        for cases, timed in ((FLASH_CASES, True), (FLASH_RAGGED, False), (FLASH_EXTREME, False)):
+        for cases, timed in ((FLASH_CASES, True), (FLASH_RAGGED, False), (FLASH_EXTREME, False),
+                             (FLASH_PAD, False)):
             for case in cases:
                 recs["flash_attention_fwd"].append(check_flash(torch, F, dtype, *case, timed=timed))
                 for name, rec in check_flash_bwd(torch, F, dtype, *case, timed=timed).items():
                     recs[name].append(rec)
-        for case in GN_CASES:
-            recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=True))
+        for i, case in enumerate(GN_CASES):
+            recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=True, backward=i < 2))
         for case in GN_RAGGED:
             recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=False))
     check_flash_autograd(torch)
@@ -584,15 +613,24 @@ def phase_chain(torch):
 
 
 def phase_forward(torch):
+    """The fp32 UNet forward on the card against the CPU plain path: full width at 256^2, and the parity
+    harness's UNet (heads of D=16 at its flash site)."""
+    serving = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    check_forward(torch, dict(image_size=SIZE), 2, {**TRAIN_LAUNCHES, **serving})
+    check_forward(torch, NARROW, 12, {**NARROW_LAUNCHES, **serving})
+
+
+def check_forward(torch, unet_kwargs, seed, expect):
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.ops import launch_counts, reset_launch_counts
 
-    torch.manual_seed(2)
-    gpu = ResDiffUNet(image_size=SIZE, device="cuda")
-    cpu = ResDiffUNet(image_size=SIZE, device="cpu")
+    size = unet_kwargs["image_size"]
+    torch.manual_seed(seed)
+    gpu = ResDiffUNet(**unet_kwargs, device="cuda")
+    cpu = ResDiffUNet(**unet_kwargs, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    gen = torch.Generator().manual_seed(3)
-    x = torch.randn((1, 2, SIZE, SIZE), generator=gen)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((1, 2, size, size), generator=gen)
     gamma = torch.tensor([0.7])
     with torch.no_grad():
         reset_launch_counts()
@@ -602,13 +640,13 @@ def phase_forward(torch):
         out_cpu = cpu(x, gamma)
         cpu_s = time.perf_counter() - t0
     err = (out_gpu - out_cpu).abs()
-    ok = bool((err <= FORWARD_TOL["atol"] + FORWARD_TOL["rtol"] * out_cpu.abs()).all())
-    rec = {"phase": "forward", "shape": [1, 2, SIZE, SIZE], "dtype": "float32", "tf32": False,
-           "launches": counts, "max_abs_err": float(err.max()), "ref_abs_max": float(out_cpu.abs().max()),
-           "tolerance": FORWARD_TOL, "cpu_forward_s": cpu_s, "ok": ok}
+    ok = bool((err <= FORWARD_TOL["atol"] + FORWARD_TOL["rtol"] * out_cpu.abs()).all()) and counts == expect
+    rec = {"phase": "forward", "unet": unet_kwargs, "shape": [1, 2, size, size], "dtype": "float32",
+           "tf32": False, "launches": counts, "max_abs_err": float(err.max()),
+           "ref_abs_max": float(out_cpu.abs().max()), "tolerance": FORWARD_TOL, "cpu_forward_s": cpu_s, "ok": ok}
     emit(rec)
-    if not ok or counts != {**TRAIN_LAUNCHES, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
-        raise AssertionError(f"full forward on the card disagrees with the CPU plain path: {rec}")
+    if not ok:
+        raise AssertionError(f"forward on the card disagrees with the CPU plain path (launches {expect}): {rec}")
 
 
 def _synthetic_batch(torch, batch, size, seed, device):
@@ -698,21 +736,28 @@ def profile_step(torch, unet, sched, batch, precision):
 
 
 def phase_grad(torch):
-    """One fp32 step's gradients: the card's kernels against the CPU's plain versions."""
+    """One fp32 step's gradients: the card's kernels against the CPU's plain versions, at full width and
+    for the parity harness's UNet."""
+    check_gradients(torch, dict(image_size=GRAD_SIZE), 7, TRAIN_LAUNCHES)
+    check_gradients(torch, NARROW, 17, NARROW_LAUNCHES)
+
+
+def check_gradients(torch, unet_kwargs, seed, expect):
     from mrisr_torch.diffusion.schedules import resdiff_schedule
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.ops import launch_counts, reset_launch_counts
     from mrisr_torch.train.state import Optimizer, create_train_state
     from mrisr_torch.train.steps import make_resdiff_train_step
 
-    torch.manual_seed(7)
-    gpu = ResDiffUNet(image_size=GRAD_SIZE, dropout=0.0)
-    cpu = ResDiffUNet(image_size=GRAD_SIZE, dropout=0.0, device="cpu")
+    size = unet_kwargs["image_size"]
+    torch.manual_seed(seed)
+    gpu = ResDiffUNet(**unet_kwargs, dropout=0.0)
+    cpu = ResDiffUNet(**unet_kwargs, dropout=0.0, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     sched = resdiff_schedule(1000)
-    batch = _synthetic_batch(torch, 1, GRAD_SIZE, 8, "cpu")
-    gen = torch.Generator().manual_seed(9)
-    draws = {"gamma": torch.tensor([0.6]), "eps": torch.randn((1, 1, GRAD_SIZE, GRAD_SIZE), generator=gen)}
+    batch = _synthetic_batch(torch, 1, size, seed + 1, "cpu")
+    gen = torch.Generator().manual_seed(seed + 2)
+    draws = {"gamma": torch.tensor([0.6]), "eps": torch.randn((1, 1, size, size), generator=gen)}
 
     def gradients(unet, device):
         seen = {}
@@ -735,9 +780,9 @@ def phase_grad(torch):
     g_cpu, loss_cpu, cpu_s = gradients(cpu, "cpu")
     rel = {k: float((g_gpu[k] - g).norm() / g.norm().clamp_min(1e-30)) for k, g in g_cpu.items()}
     worst = max(rel, key=rel.get)
-    ok = (rel[worst] <= GRAD_TOL and counts == TRAIN_LAUNCHES and launch_counts() == counts
+    ok = (rel[worst] <= GRAD_TOL and counts == expect and launch_counts() == counts
           and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu))
-    rec = {"phase": "grad", "shape": [1, GRAD_SIZE, GRAD_SIZE, 1], "dtype": "float32", "tf32": False,
+    rec = {"phase": "grad", "unet": unet_kwargs, "shape": [1, size, size, 1], "dtype": "float32", "tf32": False,
            "dropout": 0.0, "launches": counts, "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "leaves": len(rel),
            "worst_leaf": worst, "worst_rel_l2": rel[worst], "tolerance": GRAD_TOL, "cpu_step_s": cpu_s, "ok": ok}
     emit(rec)
@@ -749,7 +794,7 @@ KERNELS = [  # (name, route, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
     ("flash_attention_bwd_dq", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:228"),
     ("flash_attention_bwd_dkv", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:262"),
-    ("group_norm_silu", "triton", "mrisr_torch/ops/groupnorm.py", "mrisr_tpu/ops/groupnorm.py:57"),
+    ("group_norm_silu", "cuda", "mrisr_torch/csrc/group_norm_silu.cu", "mrisr_tpu/ops/groupnorm.py:57"),
 ]
 
 

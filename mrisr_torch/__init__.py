@@ -7,9 +7,11 @@ returns ``[B, H, W, 1]``, attention takes ``[B, N, D]``).
 
 Hand-written kernels, each with a plain PyTorch version beside it:
 
-* ``ops/flash_attention.py`` + ``csrc/flash_attn_fwd.cu``: flash-attention
-  forward, CUDA C++ for ``sm_90a``;
-* ``ops/groupnorm.py``: fused GroupNorm + SiLU, Triton.
+* ``ops/flash_attention.py`` + ``csrc/flash_attn_fwd.cu``,
+  ``csrc/flash_attn_bwd.cu``: flash-attention forward and backward (dQ,
+  dK/dV), CUDA C++ for ``sm_90a``;
+* ``ops/groupnorm.py`` + ``csrc/group_norm_silu.cu``: fused GroupNorm +
+  SiLU, CUDA C++ for ``sm_90a`` (thread-block clusters).
 
 A wrapper runs the plain version only for a tensor that lies on the CPU; for a
 CUDA tensor it launches its kernel or raises.

@@ -78,11 +78,11 @@ def build_libraries(names: tuple[str, ...], device: str = "cuda") -> None:
 
 
 def ptxas_report(name: str) -> list[str]:
-    """The register and spill lines of ``<name>.log``, and ptxas's performance-loss notes
+    """The kernel names, register and spill lines of ``<name>.log``, and ptxas's performance-loss notes
     (a serialized wgmma pipeline shows there)."""
     log = (build_dir() / f"{name}.log").read_text()
     return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
+            if "Function properties for" in ln or "registers" in ln or "spill" in ln or "Performance Loss" in ln]
 
 
 def load_library(name: str, device: str = "cuda") -> ctypes.CDLL:

@@ -660,26 +660,6 @@ struct F32Maps {
   CUtensorMap q, q_lo, dout, do_lo, k, k_lo, v, v_lo, qt, qt_lo, dot, dot_lo, kt, kt_lo;
 };
 
-// a (+)= lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B), the small terms first:
-// 3xTF32 for one k-step, both operands in shared memory.
-template <int N>
-__device__ __forceinline__ void wgmma_3xtf32_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo, uint64_t b_hi,
-                                                uint64_t b_lo, int scale_d) {
-  wgmma_tf32_ss<N>(d, a_lo, b_hi, scale_d);
-  wgmma_tf32_ss<N>(d, a_hi, b_lo, 1);
-  wgmma_tf32_ss<N>(d, a_hi, b_hi, 1);
-}
-
-// The same with A in registers (to_tf32_frags).
-template <int N>
-__device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[N / 2], const uint32_t (&a_hi)[4],
-                                                const uint32_t (&a_lo)[4], uint64_t b_hi, uint64_t b_lo,
-                                                int scale_d) {
-  wgmma_tf32_rs<N>(d, a_lo, b_hi, scale_d);
-  wgmma_tf32_rs<N>(d, a_hi, b_lo);
-  wgmma_tf32_rs<N>(d, a_hi, b_hi);
-}
-
 template <int D>
 __global__ void __launch_bounds__(DqF32Tiles<D>::kThreads, 1)
     flash_bwd_dq_f32_kernel(const __grid_constant__ F32Maps m, const float* __restrict__ lse,
@@ -876,7 +856,7 @@ __global__ void __launch_bounds__(DqF32Tiles<D>::kThreads, 1)
     fence_dq();
     add_to(dq_acc, dq_part);
 
-    store_rows_f32<D>(dq_acc, dq + (size_t)b * N * D, row_a, N, scale, t4);
+    store_rows_f32<D>(dq_acc, dq + (size_t)b * N * D, row_a, N, scale, scale, t4);
   }
 }
 
@@ -1125,8 +1105,8 @@ __global__ void __launch_bounds__(DkvF32Tiles<D>::kThreads, 1)
     }
 
     const int row_a = k0 + row0 + warp * 16 + g;
-    store_rows_f32<DC, D>(dk_acc, dk + (size_t)b * M * D + col0, row_a, M, scale, t4);
-    store_rows_f32<DC, D>(dv_acc, dv + (size_t)b * M * D + col0, row_a, M, 1.f, t4);
+    store_rows_f32<DC, D>(dk_acc, dk + (size_t)b * M * D + col0, row_a, M, scale, scale, t4);
+    store_rows_f32<DC, D>(dv_acc, dv + (size_t)b * M * D + col0, row_a, M, 1.f, 1.f, t4);
   }
 }
 

@@ -70,14 +70,50 @@
 //     every wgmma of the kernel (notes C7511/C7513/C7515; chip_smoke.py's
 //     build phase fails on them).
 //   * Epilogue: O / l in bf16 and lse = m ln2 + ln l, rows past N not stored.
-//   * fp32: plain FMA (no TF32), 4 threads per Q row, each owning a quarter
-//     of D; K/V tiles of 32 rows in shared memory, 16 keys per softmax update.
+//
+// fp32 design: 3xTF32 on the tensor cores, in the shape of the backward's
+// fp32 dQ kernel (flash_attn_bwd.cu) without dO and dP.  Bound at the 128^2
+// skip (8x16384^2x32): 4 B N M D = 275 GFLOP, three tf32 passes a product ->
+// 1.67 ms at 495 TFLOP/s (4.1 ms as FMA at 67), the exponentials' 0.58 ms
+// under it.
+//   * One CTA per (batch, owned Q rows): a TMA producer warpgroup and
+//     consumer warpgroups of 64 Q rows.  Q's hi and lo parts are loaded once;
+//     K hi/lo and V^T hi/lo tiles of BK keys stream through the K/V ring
+//     (full/empty mbarriers; K is released once S has retired, V^T once P V
+//     has).  Per D (F32Tiles; sweep): two consumers and BK = 64 at D=32; one
+//     consumer at D=64 (BK 64) and D=128 (BK 32), where Q's two parts of 64
+//     rows take 32 / 64 KB.
+//   * Each operand x is split into hi = x rounded to tf32 and lo = x - hi
+//     rounded (to nearest: the tensor cores drop a raw operand's 13 low
+//     bits), and a product takes lo hi + hi lo + hi hi.  The parts of Q, K
+//     and V are made in PyTorch before the launch (tf32_fwd_parts), P's in
+//     registers (to_tf32_frags).
+//   * Each product goes to a fresh accumulator, its small terms (lo hi, hi
+//     lo) of every k-step first and the hi hi terms last: the tensor cores
+//     truncate as they add to the accumulator, and with the small terms
+//     added to the large sums (the per-k-step order of the backward's
+//     products) scores near -130 came out 1e-4 high, over the fp32 lse limit.
+//   * S = Q K^T with wgmma_3xtf32_ss_fresh (both operands K-major as they are);
+//     the scores are scaled by scale*log2(e) in registers, so one ex2 gives p
+//     for any sign of the scale.  Keys past M score -inf on the last tile
+//     only, which takes its own step: a zero key row would score 0, far above
+//     every real score when all of them are very negative.
+//   * O += P V with wgmma_3xtf32_rs_fresh: tf32 wgmma has no transpose bit, so B is
+//     V^T with each group of 8 keys permuted (transpose_permuted) to match
+//     the A fragments that to_tf32_frags makes of the accumulator.  Each
+//     tile's product goes to a fresh accumulator, and O = alpha O + part is
+//     taken in fp32 registers: the tensor cores truncate as they accumulate.
+//   * The denominator is summed in fp32 registers from the same fp32 p (as
+//     the reference's fp32 V_AUG column sums fp32 p): per-thread partials
+//     rescaled by alpha, reduced across the quad once in the epilogue.
+//   * The pipeline is the backward's one-buffer order: issue S(t), then
+//     P(t-1) V(t-1); the softmax of tile t runs while that product does; two
+//     consumers take turns on named barriers.  wgmma operands are pinned with
+//     fence_regs and every group is issued on a path fixed at compile time.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 64;  // Q rows per block of the fp32 kernel
 
 // Tile table of the bf16 kernel, per head dimension D.
 template <int D>
@@ -417,107 +453,273 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
   }
 }
 
+// ---- fp32: 3xTF32 on the tensor cores ---------------------------------------
+
+// The operands of the fp32 kernel, made by flash_attention.py::tf32_fwd_parts
+// (in this order in the `parts` argument): the high and low tf32 parts of Q
+// and K (hi = x rounded to tf32, lo = x - hi rounded), and V transposed to
+// [B, D, M padded to kTransposePad], high and low, each group of 8 keys
+// permuted as to_tf32_frags needs.
+enum Part { kQHi, kQLo, kKHi, kKLo, kVt, kVtLo };
+constexpr int kTransposePad = 64;
+
+// Tile table of the fp32 kernel, per head dimension D.  Q is in shared
+// memory twice (high and low part) and each stage holds K, K lo, V^T, V^T lo.
 template <int D>
-__global__ void __launch_bounds__(256)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int N, int M, float scale_log2) {
-  constexpr int BK = 32;     // keys per shared-memory tile
-  constexpr int CK = 16;     // keys per softmax update
-  constexpr int V4 = D / 16; // float4s of D owned by each of the 4 threads of a row
-  extern __shared__ float4 smem_f4[];
-  float4* Ks = smem_f4;
-  float4* Vs = smem_f4 + BK * (D / 4);
+struct F32Tiles {
+  using Rows = SwizzledRows<D, 4>;  // Q, K tiles: D columns
+  // At D=64 and 128 the owned Q tiles (64 rows, 16 bytes a column) leave room
+  // for one consumer's rows only, with stages of 64 / 32 keys.
+  static constexpr int kConsumers = D == 32 ? 2 : 1;
+  static constexpr int kRowsQ = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kKeys = D == 128 ? 32 : 64;  // BK: keys per K/V tile
+  using RowsT = SwizzledRows<kKeys, 4>;              // V^T tiles: BK columns
+  // The loop issues tile t's scores before it releases tile t - 1: two stages at least.
+  static constexpr int kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);
+  // The two consumer warpgroups take turns issuing on named barriers.
+  static constexpr bool kPingPong = kConsumers == 2;
+  static constexpr int kQBytes = kRowsQ * D * 4;     // each of Q, Q lo
+  static constexpr int kTileBytes = kKeys * D * 4;   // each of K, K lo (a K stage), V^T, V^T lo (a V stage)
+  static constexpr int kBarBytes = 8 + KvRing<kStages>::kBarBytes;
+  // Shared memory: Q, Q lo, K stages, V stages, barriers, plus slack to align the base to 1024.
+  static constexpr int kSmemBytes = 2 * kQBytes + 4 * kStages * kTileBytes + kBarBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
+
+// The tensor maps of the fp32 kernel: the parts it reads.
+struct F32Maps {
+  CUtensorMap q, q_lo, k, k_lo, vt, vt_lo;
+};
+
+// The online-softmax update of one fp32 score tile, in place.  s: this
+// thread's raw scores of rows g and g+8 (wgmma layout), replaced by
+// p = exp2(s * sl2 - m); m0/m1: running row maxima of the scaled scores
+// (log2 units); a0/a1: the factor the previous O and l must be scaled by;
+// l0/l1: this thread's partial row sums of p (its columns only), rescaled and
+// added to here.  The scores are scaled first, so any sign of the scale
+// works.  Keys >= valid are masked when `mask` is set.
+template <int BK>
+__device__ __forceinline__ void softmax_tile_f32(float (&s)[BK / 2], float& m0, float& m1, float& a0, float& a1,
+                                                 float& l0, float& l1, float sl2, bool mask, int valid, int t4) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] *= sl2;
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j * 8 + t4 * 2 + (e & 1) >= valid) s[4 * j + e] = -INFINITY;
+      }
+    }
+  }
+  float c0[2], c1[2];
+  c0[0] = fmaxf(s[0], s[1]);
+  c1[0] = fmaxf(s[2], s[3]);
+  c0[1] = fmaxf(s[4], s[5]);
+  c1[1] = fmaxf(s[6], s[7]);
+#pragma unroll
+  for (int j = 2; j < BK / 8; ++j) {
+    c0[j % 2] = fmaxf(c0[j % 2], fmaxf(s[4 * j], s[4 * j + 1]));
+    c1[j % 2] = fmaxf(c1[j % 2], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float mx0 = fmaxf(c0[0], c0[1]), mx1 = fmaxf(c1[0], c1[1]);
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // Every tile holds a valid key, so the new maxima are finite; on the first
+  // tile the old ones are -inf and a0 = a1 = 0.
+  const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+  a0 = ex2(m0 - n0);
+  a1 = ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    s[4 * j] = ex2(s[4 * j] - n0);
+    s[4 * j + 1] = ex2(s[4 * j + 1] - n0);
+    s[4 * j + 2] = ex2(s[4 * j + 2] - n1);
+    s[4 * j + 3] = ex2(s[4 * j + 3] - n1);
+    r0 += s[4 * j] + s[4 * j + 1];
+    r1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = fmaf(l0, a0, r0);
+  l1 = fmaf(l1, a1, r1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Tiles<D>::kThreads, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ F32Maps m, float* __restrict__ o, float* __restrict__ lse, int N,
+                         int M, float scale_log2) {
+  using T = F32Tiles<D>;
+  using R = typename T::Rows;
+  using RT = typename T::RowsT;
+  constexpr int BK = T::kKeys;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte aligned bases.
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;  // Q, Q lo
+  const uint32_t k_s = q_s + 2 * T::kQBytes;                     // per stage: K, K lo
+  const uint32_t v_s = k_s + 2 * S * T::kTileBytes;              // per stage: V^T, V^T lo
+  const uint32_t q_full = v_s + 2 * S * T::kTileBytes;           // then the K/V ring's barriers
+  const KvRing<S> ring{q_full};
+  auto k_at = [&](int st) { return k_s + st * 2 * T::kTileBytes; };
+  auto v_at = [&](int st) { return v_s + st * 2 * T::kTileBytes; };
 
   const int b = blockIdx.y;
-  const int row = threadIdx.x >> 2;
-  const int part = threadIdx.x & 3;
-  const int qrow = blockIdx.x * kBlockQ + row;
-  const bool valid = qrow < N;
-  // Thread `part` owns the float4s j*4 + part of its row, so the 4 threads of
-  // a row read 64 consecutive bytes of a K/V row: no bank conflicts.
-  float4 qv[V4], acc[V4];
-  const float4* qr = reinterpret_cast<const float4*>(q + ((size_t)b * N + qrow) * D);
-#pragma unroll
-  for (int j = 0; j < V4; ++j) {
-    qv[j] = valid ? qr[j * 4 + part] : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const float4* kb = reinterpret_cast<const float4*>(k + (size_t)b * M * D);
-  const float4* vb = reinterpret_cast<const float4*>(v + (size_t)b * M * D);
-
-  float m_run = -INFINITY, l_run = 0.f;
+  const int q0 = blockIdx.x * T::kRowsQ;
   const int n_tiles = (M + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();
-    for (int c = threadIdx.x; c < BK * (D / 4); c += 256) {
-      const int r = c / (D / 4);
-      const bool in = k0 + r < M;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      Ks[c] = in ? kb[(size_t)k0 * (D / 4) + c] : zero;
-      Vs[c] = in ? vb[(size_t)k0 * (D / 4) + c] : zero;
-    }
-    __syncthreads();
 
-    for (int c0 = 0; c0 < BK; c0 += CK) {
-      float sc[CK];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float4* kr = Ks + (c0 + c) * (D / 4);
-        float d = 0.f;
-#pragma unroll
-        for (int j = 0; j < V4; ++j) {
-          const float4 kk = kr[j * 4 + part];
-          d = fmaf(qv[j].x, kk.x, d);
-          d = fmaf(qv[j].y, kk.y, d);
-          d = fmaf(qv[j].z, kk.z, d);
-          d = fmaf(qv[j].w, kk.w, d);
-        }
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        sc[c] = (k0 + c0 + c < M) ? d * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, sc[c]);
-      }
-      // Chunk 0 of tile 0 holds key 0, so m_new is always finite.
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = exp2f(m_run - m_new);
-      m_run = m_new;
-      l_run *= alpha;
-#pragma unroll
-      for (int j = 0; j < V4; ++j) {
-        acc[j].x *= alpha;
-        acc[j].y *= alpha;
-        acc[j].z *= alpha;
-        acc[j].w *= alpha;
-      }
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float p = exp2f(sc[c] - m_run);
-        l_run += p;
-        const float4* vr = Vs + (c0 + c) * (D / 4);
-#pragma unroll
-        for (int j = 0; j < V4; ++j) {
-          const float4 vv = vr[j * 4 + part];
-          acc[j].x = fmaf(p, vv.x, acc[j].x);
-          acc[j].y = fmaf(p, vv.y, acc[j].y);
-          acc[j].z = fmaf(p, vv.z, acc[j].z);
-          acc[j].w = fmaf(p, vv.w, acc[j].w);
-        }
-      }
-    }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    ring.init(4 * T::kConsumers);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  if (valid) {
-    const float inv = l_run > 0.f ? 1.f / l_run : 1.f;
-    float4* orow = reinterpret_cast<float4*>(o + ((size_t)b * N + qrow) * D);
-#pragma unroll
-    for (int j = 0; j < V4; ++j) {
-      orow[j * 4 + part] =
-          make_float4(acc[j].x * inv, acc[j].y * inv, acc[j].z * inv, acc[j].w * inv);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    if constexpr (T::kConsumers > 1) setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * T::kQBytes);
+      R::load(q_s, &m.q, q_full, 0, q0, T::kRowsQ, b);
+      R::load(q_s + T::kQBytes, &m.q_lo, q_full, 0, q0, T::kRowsQ, b);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const uint32_t k = k_at(st), v = v_at(st);
+        mbar_wait(ring.k_empty(st), phase ^ 1);
+        mbar_arrive_expect_tx(ring.k_full(st), 2 * T::kTileBytes);
+        R::load(k, &m.k, ring.k_full(st), 0, t * BK, BK, b);
+        R::load(k + T::kTileBytes, &m.k_lo, ring.k_full(st), 0, t * BK, BK, b);
+        mbar_wait(ring.v_empty(st), phase ^ 1);
+        mbar_arrive_expect_tx(ring.v_full(st), 2 * T::kTileBytes);
+        RT::load(v, &m.vt, ring.v_full(st), t * BK, 0, D, b);
+        RT::load(v + T::kTileBytes, &m.vt_lo, ring.v_full(st), t * BK, 0, D, b);
+        if (++st == S) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
     }
-    if (part == 0) lse[(size_t)b * N + qrow] = m_run * kLn2 + logf(fmaxf(l_run, 1e-37f));
+  } else {
+    // ---- consumer warpgroups: 64 Q rows each ----
+    if constexpr (T::kConsumers > 1) setmaxnreg_inc<T::kConsumerRegs>();
+    // Warp-uniform by construction (a shuffle from lane 0), so descriptors stay in uniform registers.
+    const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0) - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool ragged = M % BK != 0;
+    const int last_valid = M - (n_tiles - 1) * BK;
+
+    // o_part: one tile's P V, added to o_acc in fp32 (the tensor cores
+    // truncate as they accumulate).  l0/l1: this thread's partial row sums.
+    float s[BK / 2], o_acc[D / 2], o_part[D / 2];
+    uint32_t p_hi[BK / 8][4], p_lo[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, a0 = 0.f, a1 = 0.f, l0 = 0.f, l1 = 0.f;
+
+    // S = Q K^T, both operands K-major.
+    auto s_issue = [&](int st) {
+      const uint32_t q = opaque(q_s), k = opaque(k_at(st));
+      wgmma_3xtf32_ss_fresh<BK, D / 8>(
+          s, [&](int kk, int lo) { return R::k_major(q + lo * T::kQBytes, T::kRowsQ, wg * 64, kk); },
+          [&](int kk, int lo) { return R::k_major(k + lo * T::kTileBytes, BK, 0, kk); });
+    };
+    // O part = P V: B is the stage's V^T, K-major over the permuted keys.
+    auto pv_issue = [&](int st) {
+      const uint32_t vt = opaque(v_at(st));
+      wgmma_3xtf32_rs_fresh<D, BK / 8>(o_part, p_hi, p_lo,
+                                       [&](int kk, int lo) { return RT::k_major(vt + lo * T::kTileBytes, D, 0, kk); });
+    };
+    auto fence_pv = [&]() {  // the operands of pv_issue
+      fence_regs(o_part);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+    };
+    // O = a O + part, with a the factor of the softmax the part belongs to.
+    auto add_part = [&](float f0, float f1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o_acc[4 * j] = fmaf(o_acc[4 * j], f0, o_part[4 * j]);
+        o_acc[4 * j + 1] = fmaf(o_acc[4 * j + 1], f0, o_part[4 * j + 1]);
+        o_acc[4 * j + 2] = fmaf(o_acc[4 * j + 2], f1, o_part[4 * j + 2]);
+        o_acc[4 * j + 3] = fmaf(o_acc[4 * j + 3], f1, o_part[4 * j + 3]);
+      }
+    };
+    auto stage = [](int t) { return t % S; };
+    auto parity = [](int t) { return (uint32_t)((t / S) & 1); };
+
+    mbar_wait(q_full, 0);
+    // Tile 0.
+    mbar_wait(ring.k_full(0), 0);
+    fence_regs(s);
+    wgmma_fence();
+    s_issue(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(ring.k_empty(0));
+    softmax_tile_f32<BK>(s, m0, m1, a0, a1, l0, l1, scale_log2, ragged && n_tiles == 1, last_valid, t4);
+    to_tf32_frags<BK>(s, p_hi, p_lo);
+
+    // Tile t: issue S(t), then the part P(t-1) V(t-1); the softmax of S(t)
+    // runs while that product does, and P(t) is split once it has retired.
+    // The last tile takes its own step, so the loop carries no key mask.
+    auto step = [&](int t, bool mask) {
+      mbar_wait(ring.k_full(stage(t)), parity(t));
+      mbar_wait(ring.v_full(stage(t - 1)), parity(t - 1));
+      // Turns: warpgroup 0 issues tile t's products, then warpgroup 1 (barrier
+      // 1 + wg is this warpgroup's turn, signalled by the other one).
+      if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
+      fence_regs(s);
+      fence_pv();
+      wgmma_fence();
+      s_issue(stage(t));
+      wgmma_commit();
+      pv_issue(stage(t - 1));
+      wgmma_commit();
+      if (T::kPingPong && !(wg == 1 && t == n_tiles - 1)) named_bar_arrive(2 - wg, 256);
+      const float f0 = a0, f1 = a1;  // the factor of tile t - 1, before the softmax of tile t replaces it
+      wgmma_wait<1>();  // S(t) is ready; P V of tile t - 1 may still run
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(ring.k_empty(stage(t)));
+      softmax_tile_f32<BK>(s, m0, m1, a0, a1, l0, l1, scale_log2, mask, last_valid, t4);
+      wgmma_wait<0>();
+      fence_pv();
+      if (lane == 0) mbar_arrive(ring.v_empty(stage(t - 1)));
+      add_part(f0, f1);
+      to_tf32_frags<BK>(s, p_hi, p_lo);
+    };
+    for (int t = 1; t < n_tiles - 1; ++t) step(t, false);
+    if (n_tiles > 1) step(n_tiles - 1, ragged);
+    mbar_wait(ring.v_full(stage(n_tiles - 1)), parity(n_tiles - 1));
+    fence_pv();
+    wgmma_fence();
+    pv_issue(stage(n_tiles - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_pv();
+    add_part(a0, a1);
+
+    // Epilogue: the row sums from the quad's partials.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const int row_a = q0 + wg * 64 + warp * 16 + g;
+    const int row_b = row_a + 8;
+    store_rows_f32<D>(o_acc, o + (size_t)b * N * D, row_a, N, 1.f / l0, 1.f / l1, t4);
+    if (t4 == 0) {
+      if (row_a < N) lse[(size_t)b * N + row_a] = m0 * kLn2 + logf(l0);
+      if (row_b < N) lse[(size_t)b * N + row_b] = m1 * kLn2 + logf(l1);
+    }
   }
 }
 
@@ -538,16 +740,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   return cudaGetLastError();
 }
 
+// The fp32 kernel's tensor maps: Q's parts in tiles of the CTA's rows, K's of
+// BK rows, V^T's (rows of M rounded up to kTransposePad) of BK columns and D rows.
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                       int N, int M, float scale_log2, cudaStream_t stream) {
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, B);
-  const size_t smem = (size_t)2 * 32 * D * sizeof(float);
-  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+cudaError_t launch_f32(const void* const* parts, void* o, float* lse, int B, int N, int M, float scale_log2,
+                       cudaStream_t stream) {
+  using T = F32Tiles<D>;
+  const int box = SwizzledRows<D, 4>::kBox, box_t = T::RowsT::kBox;
+  const int mp = (M + kTransposePad - 1) / kTransposePad * kTransposePad;
+  F32Maps m;
+  if (parts == nullptr || !encode_map(&m.q, parts[kQHi], B, N, D, box, T::kRowsQ, 4) ||
+      !encode_map(&m.q_lo, parts[kQLo], B, N, D, box, T::kRowsQ, 4) ||
+      !encode_map(&m.k, parts[kKHi], B, M, D, box, T::kKeys, 4) ||
+      !encode_map(&m.k_lo, parts[kKLo], B, M, D, box, T::kKeys, 4) ||
+      !encode_map(&m.vt, parts[kVt], B, D, mp, box_t, D, 4) ||
+      !encode_map(&m.vt_lo, parts[kVtLo], B, D, mp, box_t, D, 4)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<D><<<grid, 256, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, N, M, scale_log2);
+  const dim3 grid((N + T::kRowsQ - 1) / T::kRowsQ, B);
+  flash_fwd_f32_kernel<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(m, static_cast<float*>(o), lse, N, M,
+                                                                         scale_log2);
   return cudaGetLastError();
 }
 
@@ -555,11 +769,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 
 // q [B,N,D], k and v [B,M,D], o [B,N,D] (all contiguous, same dtype, 16-byte
 // aligned), lse [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32,
-// 64 or 128; the bf16 kernel takes scale > 0 only.
+// 64 or 128; the bf16 kernel takes scale > 0 only.  parts: for fp32, a host
+// array of the device pointers of enum Part (made by
+// flash_attention.py::tf32_fwd_parts, each contiguous and 16-byte aligned; the
+// kernel reads these, not q, k, v); null for bf16.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int N, int M, int D, int is_bf16,
-                                    float scale, void* stream) {
+                                    float scale, const void* const* parts, void* stream) {
   if (B <= 0 || N <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   const float sl2 = scale * kLog2e;
   float* l = static_cast<float*>(lse);
@@ -573,9 +790,9 @@ extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v,
     }
   } else {
     switch (D) {
-      case 32: return (int)launch_f32<32>(q, k, v, o, l, B, N, M, sl2, st);
-      case 64: return (int)launch_f32<64>(q, k, v, o, l, B, N, M, sl2, st);
-      case 128: return (int)launch_f32<128>(q, k, v, o, l, B, N, M, sl2, st);
+      case 32: return (int)launch_f32<32>(parts, o, l, B, N, M, sl2, st);
+      case 64: return (int)launch_f32<64>(parts, o, l, B, N, M, sl2, st);
+      case 128: return (int)launch_f32<128>(parts, o, l, B, N, M, sl2, st);
     }
   }
   return (int)cudaErrorInvalidValue;

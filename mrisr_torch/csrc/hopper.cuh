@@ -391,6 +391,56 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// a (+)= lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B), the small terms first:
+// 3xTF32 for one k-step, both operands in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo, uint64_t b_hi,
+                                                uint64_t b_lo, int scale_d) {
+  wgmma_tf32_ss<N>(d, a_lo, b_hi, scale_d);
+  wgmma_tf32_ss<N>(d, a_hi, b_lo, 1);
+  wgmma_tf32_ss<N>(d, a_hi, b_hi, 1);
+}
+
+// The same with A in registers (to_tf32_frags).
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[N / 2], const uint32_t (&a_hi)[4],
+                                                const uint32_t (&a_lo)[4], uint64_t b_hi, uint64_t b_lo,
+                                                int scale_d) {
+  wgmma_tf32_rs<N>(d, a_lo, b_hi, scale_d);
+  wgmma_tf32_rs<N>(d, a_hi, b_lo);
+  wgmma_tf32_rs<N>(d, a_hi, b_hi);
+}
+
+// 3xTF32 of a product over K k-steps into a fresh accumulator: the small
+// terms of every k-step (lo(A) hi(B), then hi(A) lo(B)) first, the large
+// ones (hi(A) hi(B)) last.  The tensor cores truncate each sum they add to
+// the accumulator, so a term added to a large accumulator loses up to its
+// last bit: with the small terms of each k-step added after the large ones
+// of the k-steps before, scores near -130 came out 1e-4 high.  a(kk, part)
+// and b(kk, part) give k-step kk's descriptor of the high (part 0) or low
+// (part 1) tile.
+template <int N, int K, class DescA, class DescB>
+__device__ __forceinline__ void wgmma_3xtf32_ss_fresh(float (&d)[N / 2], DescA a, DescB b) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 1), b(kk, 0), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 0), b(kk, 1), 1);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 0), b(kk, 0), 1);
+}
+
+// The same with A in registers (to_tf32_frags).
+template <int N, int K, class DescB>
+__device__ __forceinline__ void wgmma_3xtf32_rs_fresh(float (&d)[N / 2], const uint32_t (&a_hi)[K][4],
+                                                      const uint32_t (&a_lo)[K][4], DescB b) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_lo[kk], b(kk, 0), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_hi[kk], b(kk, 1), 1);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_hi[kk], b(kk, 0), 1);
+}
+
 // acc += part, element by element, in fp32 (rounded to nearest): the tensor
 // cores truncate as they accumulate, which over thousands of k-steps biases
 // a sum by ~1e-4, so a long sum takes each tile's product from a fresh
@@ -559,19 +609,19 @@ __device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2], __nv_
 
 // Store this thread's two rows of an m64nD fp32 accumulator (row_a and
 // row_a + 8, wgmma layout) into the row-major fp32 `out` (LD columns a row,
-// D of them stored), times f; rows >= limit are not stored.
+// D of them stored), times f_a and f_b; rows >= limit are not stored.
 template <int D, int LD = D>
-__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 2], float* out, int row_a, int limit, float f,
-                                               int t4) {
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 2], float* out, int row_a, int limit, float f_a,
+                                               float f_b, int t4) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + t4 * 2;
     if (row_a < limit) {
-      *reinterpret_cast<float2*>(out + (size_t)row_a * LD + col) = make_float2(acc[4 * j] * f, acc[4 * j + 1] * f);
+      *reinterpret_cast<float2*>(out + (size_t)row_a * LD + col) = make_float2(acc[4 * j] * f_a, acc[4 * j + 1] * f_a);
     }
     if (row_a + 8 < limit) {
       *reinterpret_cast<float2*>(out + (size_t)(row_a + 8) * LD + col) =
-          make_float2(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
+          make_float2(acc[4 * j + 2] * f_b, acc[4 * j + 3] * f_b);
     }
   }
 }

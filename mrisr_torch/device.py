@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -21,3 +23,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_ctx(device: torch.device):
+    """Make ``device`` current for a launch; no context switch when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

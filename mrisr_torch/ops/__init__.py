@@ -1,6 +1,7 @@
 """Tensor ops of the port; the kernels live in ``flash_attention`` and ``groupnorm``."""
 from __future__ import annotations
 
+from mrisr_torch._build import build_libraries
 from mrisr_torch.ops import flash_attention, groupnorm
 
 
@@ -14,7 +15,8 @@ def _counted():
 
 
 def build_kernels(device: str = "cuda") -> None:
-    """Build the flash-attention libraries and compile the GroupNorm+SiLU kernels."""
+    """Build every kernel library (one ``nvcc`` per source, all started together) and load them."""
+    build_libraries(flash_attention.LIBRARIES + groupnorm.LIBRARIES, device)
     flash_attention.build(device)
     groupnorm.build(device)
 

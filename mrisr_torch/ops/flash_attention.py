@@ -17,18 +17,21 @@ described in its source.
 
 On a CPU tensor each runs its plain version (``flash_attention_plain``,
 ``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
-(bf16 or float32, D in {32, 64, 128}; the bf16 forward takes scale > 0) or
-raises.  The float32 backward kernels run on the tensor cores in 3xTF32:
-``flash_attention_bwd`` first makes their operands with ``tf32_parts``.
+(bf16 or float32; the bf16 forward takes scale > 0) or raises.  The kernels
+exist for D in {32, 64, 128}: a narrower head is zero-padded to the next of
+them and the result sliced back (exact: zero columns add nothing to q k^T,
+to o, or to delta), and D > 128 raises.  The float32 kernels run on the
+tensor cores in 3xTF32: ``flash_attention_fwd`` and ``flash_attention_bwd``
+first make their operands with ``tf32_fwd_parts`` and ``tf32_parts``.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from mrisr_torch._build import build_libraries, load_library
+from mrisr_torch.device import device_ctx
 
 KERNEL_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -133,6 +136,34 @@ def tf32_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
     return {name: parts[name] for name in TF32_PARTS}
 
 
+# The fp32 forward kernel's operands, in the order of the C interface's `parts`.
+TF32_FWD_PARTS = ("q_hi", "q_lo", "k_hi", "k_lo", "vt", "vt_lo")
+
+
+def tf32_fwd_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The fp32 forward kernel's 3xTF32 operands: the high and low parts of q and k, and those of v
+    transposed by :func:`transpose_permuted` (the B operand of P V, which sums over keys).  Plain
+    PyTorch; its device time is part of the forward's."""
+    v_hi = tf32_hi(v)
+    q_hi, k_hi = tf32_hi(q), tf32_hi(k)
+    return {"q_hi": q_hi, "q_lo": tf32_hi(q - q_hi), "k_hi": k_hi, "k_lo": tf32_hi(k - k_hi),
+            "vt": transpose_permuted(v_hi), "vt_lo": transpose_permuted(tf32_hi(v - v_hi))}
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernels' head width that takes a head of width ``d``: the least of ``KERNEL_HEAD_DIMS`` >= d."""
+    for kd in KERNEL_HEAD_DIMS:
+        if 1 <= d <= kd:
+            return kd
+    raise ValueError(f"flash kernel takes D up to {KERNEL_HEAD_DIMS[-1]}, got D={d}")
+
+
+def _pad_head_dim(x: torch.Tensor, d_to: int) -> torch.Tensor:
+    """``[B, S, D] -> [B, S, d_to]`` with zero columns past D (``x`` itself when D == d_to)."""
+    d = x.shape[-1]
+    return x if d == d_to else torch.nn.functional.pad(x, (0, d_to - d))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("flash attention takes [B, N, D] tensors")
@@ -150,7 +181,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {  # library -> {C function: argument types}
     "flash_attn_fwd": {
-        "mrisr_flash_attn_fwd": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR],
+        "mrisr_flash_attn_fwd": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR, _PTR],
     },
     "flash_attn_bwd": {
         "mrisr_flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [ctypes.c_float, _PTR, _PTR],
@@ -180,13 +211,6 @@ def _kernel_fn(fn_name: str):
     return fn
 
 
-def _device_ctx(device: torch.device):
-    """Make ``device`` current for a launch; no context switch when it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _check_kernel_inputs(d: int, batch: int, **tensors: torch.Tensor) -> None:
     """Raise on what the kernels cannot take.
 
@@ -209,19 +233,23 @@ def _check_kernel_inputs(d: int, batch: int, **tensors: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
-    """Launch the forward kernel on contiguous CUDA tensors (no counting)."""
+    """Launch the forward kernel on contiguous CUDA tensors (no counting); for float32 it first makes
+    the kernel's operands (:func:`tf32_fwd_parts`)."""
     b, n, d = q.shape
     m = k.shape[1]
     _check_kernel_inputs(d, b, q=q, k=k, v=v)
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"the bf16 flash kernel takes scale > 0, got {scale}")
+    parts = tf32_fwd_parts(q, k, v) if q.dtype == torch.float32 else None
+    _check_parts(q, k, parts, TF32_FWD_PARTS)
+    ptrs = None if parts is None else (ctypes.c_void_p * len(parts))(*(parts[x].data_ptr() for x in TF32_FWD_PARTS))
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with _device_ctx(q.device):
+    with device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, n, m, d, KERNEL_DTYPES[q.dtype], float(scale), stream,
+            b, n, m, d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
@@ -237,9 +265,11 @@ def flash_attention_fwd(
         return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch(q, k, v, scale)
+    d = q.shape[2]
+    kd = kernel_head_dim(d)
+    o, lse = _launch(*(_pad_head_dim(t, kd) for t in (q, k, v)), scale)
     flash_attention_fwd.launches += 1
-    return out
+    return (o if kd == d else o[..., :d].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0
@@ -257,19 +287,21 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         raise ValueError("tensors on different devices")
 
 
-def _check_parts(q: torch.Tensor, k: torch.Tensor, parts) -> None:
-    """Raise unless ``parts`` is what :func:`tf32_parts` makes for float32 ``q``, ``k`` (None for bf16)."""
+def _check_parts(q: torch.Tensor, k: torch.Tensor, parts, names: tuple[str, ...] = TF32_PARTS) -> None:
+    """Raise unless ``parts`` is what :func:`tf32_parts` (``names=TF32_PARTS``) or :func:`tf32_fwd_parts`
+    (``TF32_FWD_PARTS``) makes for float32 ``q``, ``k`` (None for bf16)."""
     if q.dtype != torch.float32:
         if parts is not None:
             raise ValueError("the 3xTF32 parts are for float32 inputs only")
         return
-    if parts is None or tuple(parts) != TF32_PARTS:
-        raise ValueError(f"float32 kernels take the parts {TF32_PARTS}")
+    if parts is None or tuple(parts) != names:
+        raise ValueError(f"float32 kernels take the parts {names}")
     (b, n, d), m = q.shape, k.shape[1]
     np_, mp = (-(-x // TRANSPOSE_PAD) * TRANSPOSE_PAD for x in (n, m))
     shapes = {"q_hi": q.shape, "do_hi": q.shape, "k_hi": k.shape, "v_hi": k.shape,
               "q_lo": q.shape, "do_lo": q.shape, "k_lo": k.shape, "v_lo": k.shape, "qt": (b, d, np_),
-              "qt_lo": (b, d, np_), "dot": (b, d, np_), "dot_lo": (b, d, np_), "kt": (b, d, mp), "kt_lo": (b, d, mp)}
+              "qt_lo": (b, d, np_), "dot": (b, d, np_), "dot_lo": (b, d, np_), "kt": (b, d, mp), "kt_lo": (b, d, mp),
+              "vt": (b, d, mp), "vt_lo": (b, d, mp)}
     for name, t in parts.items():
         if tuple(t.shape) != tuple(shapes[name]) or t.device != q.device:
             raise ValueError(f"part {name}: {tuple(t.shape)} on {t.device}, expected {tuple(shapes[name])} on {q.device}")
@@ -297,7 +329,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, parts=None) ->
     ptrs, parts = _parts_arg(q, k, v, do, parts)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with _device_ctx(q.device):
+    with device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
@@ -315,7 +347,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, parts=None) -
     ptrs, parts = _parts_arg(q, k, v, do, parts)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with _device_ctx(q.device):
+    with device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
@@ -341,12 +373,18 @@ def flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     # As in the reference, delta is reduced outside the kernels; so are the
-    # float32 kernels' 3xTF32 parts, made once for both.
+    # float32 kernels' 3xTF32 parts, made once for both.  A head narrower
+    # than the kernels' is zero-padded after delta is taken and sliced back.
     delta = (do.float() * o.float()).sum(dim=-1)
+    d = q.shape[2]
+    kd = kernel_head_dim(d)
+    q, k, v, do = (_pad_head_dim(t, kd) for t in (q, k, v, do))
     parts = tf32_parts(q, k, v, do) if q.dtype == torch.float32 else None
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, parts)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, parts)
-    return dq, dk, dv
+    if kd == d:
+        return dq, dk, dv
+    return tuple(t[..., :d].contiguous() for t in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):

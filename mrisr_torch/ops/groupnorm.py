@@ -1,45 +1,43 @@
-"""Fused GroupNorm + SiLU on NCHW: Triton kernel and its plain PyTorch version.
+"""Fused GroupNorm + SiLU on NCHW: the CUDA kernel and its plain PyTorch version.
 
 Port of ``mrisr_tpu/ops/groupnorm.py::_gn_silu_kernel`` (launched by
 ``_gn_silu_forward``): per (image, group) the mean and E[x^2] in fp32,
 var = max(E[x^2] - mean^2, 0), rsqrt(var + eps), the affine folded into a
 per-channel scale and bias, and y * sigmoid(y) written in the input dtype.
-
-Design.  The TPU kernel keeps a whole image resident in VMEM and reads it
-once.  One 256^2 x 96 bf16 image is 12.6 MB, far beyond the 227 KB of shared
-memory an H100 block has, so the port runs two passes.  In NCHW each
-(image, group) is one contiguous span: a stats pass splits every span over
-several programs (one program per group would leave the 132 SMs idle: the
-serving chain has 8 x 16 = 128 groups) and writes fp32 partial sums; a second
-pass reduces those partials and normalizes + applies SiLU.  The second read
-of x may hit the 50 MB L2.
-
-Bound.  Bytes: one read and one write of x.  The largest call on the serving
-chain, 8 x 96 x 256^2 bf16, moves 201 MB, about 60 us at 3.35 TB/s; all 29
-calls of one UNet forward at bs 8 move ~1.1 GB, about 0.33 ms.
+The kernel is ``csrc/group_norm_silu.cu``: one launch a call, one
+thread-block cluster per (image, group) span, each CTA keeping its slice of
+the span in shared memory, so x is read once (the design and its bound are
+described in the source).  :func:`gn_plan` cuts the spans into slices.
 
 Gradient.  ``group_norm_silu`` is a ``torch.autograd.Function``: its forward
 is the kernel, its backward the exact composition (autograd through
 :func:`group_norm_silu_plain` on the saved input), as the reference's
 ``fused_group_norm_silu`` has a ``custom_vjp`` over
-``group_norm_silu_reference`` and no backward kernel.
+``group_norm_silu_reference`` and no backward kernel.  Where no gradient is
+needed the kernel is launched without the autograd function.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from mrisr_torch._build import BUILD_ROOT
-from mrisr_torch.device import resolve_device
+from mrisr_torch._build import build_libraries, load_library
+from mrisr_torch.device import device_ctx
 
-BLOCK = 2048  # elements per inner step of a program
-MAX_SPLITS = 64  # programs per (image, group) span, at most
-PROGRAMS_PER_SM = 4
+# The kernel's constants (``csrc/group_norm_silu.cu``; a test holds the two to each other).
+GN_MAX_CLUSTER = 8  # CTAs a cluster, at most
+GN_SLICE_TARGET = 64 * 1024  # bytes of a CTA's slice the plan aims at
+GN_MAX_SLICE_BYTES = 224 * 1024  # bytes of a slice a CTA may keep in shared memory
+GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+LIBRARIES = ("group_norm_silu",)
 
-_KERNELS = None
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 4 + [_L, _L] + [_I] * 5 + [_L, _I, _I, ctypes.c_float, _P]
+_FN = None
 
 
 def group_norm_silu_plain(
@@ -50,115 +48,85 @@ def group_norm_silu_plain(
     return F.silu(y).to(x.dtype)
 
 
-def _triton_kernels():
-    """Define the Triton kernels once, on first use (``triton`` is imported here)."""
-    global _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_ROOT / "triton"))
-    import triton
-    import triton.language as tl
+class GnPlan(NamedTuple):
+    """How the kernel cuts the (image, group) spans of one shape."""
 
-    @triton.jit
-    def gn_stats_kernel(x_ptr, part_ptr, group_numel, chunk, n_splits, BLOCK: tl.constexpr):
-        bg = tl.program_id(0)
-        s = tl.program_id(1)
-        base = x_ptr + bg.to(tl.int64) * group_numel
-        start = s * chunk
-        acc1 = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for off in range(0, chunk, BLOCK):
-            idx = start + off + tl.arange(0, BLOCK)
-            xv = tl.load(base + idx, mask=idx < group_numel, other=0.0).to(tl.float32)
-            acc1 += xv
-            acc2 += xv * xv
-        out = part_ptr + (bg * n_splits + s) * 2
-        tl.store(out, tl.sum(acc1, axis=0))
-        tl.store(out + 1, tl.sum(acc2, axis=0))
-
-    @triton.jit
-    def gn_silu_apply_kernel(
-        x_ptr, y_ptr, w_ptr, b_ptr, part_ptr, group_numel, hw, cg, groups, chunk, n_splits,
-        inv_count, eps, NS: tl.constexpr, BLOCK: tl.constexpr,
-    ):
-        bg = tl.program_id(0)
-        s = tl.program_id(1)
-        ks = tl.arange(0, NS)
-        pm = ks < n_splits
-        parts = part_ptr + (bg * n_splits + ks) * 2
-        s1 = tl.sum(tl.load(parts, mask=pm, other=0.0), axis=0)
-        s2 = tl.sum(tl.load(parts + 1, mask=pm, other=0.0), axis=0)
-        mean = s1 * inv_count
-        var = tl.maximum(s2 * inv_count - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-        c0 = (bg % groups) * cg
-        base = bg.to(tl.int64) * group_numel
-        start = s * chunk
-        for off in range(0, chunk, BLOCK):
-            idx = start + off + tl.arange(0, BLOCK)
-            m = idx < group_numel
-            c = c0 + idx // hw
-            w = tl.load(w_ptr + c, mask=m, other=0.0).to(tl.float32)
-            b = tl.load(b_ptr + c, mask=m, other=0.0).to(tl.float32)
-            xv = tl.load(x_ptr + base + idx, mask=m, other=0.0).to(tl.float32)
-            sc = w * rstd
-            yv = xv * sc + (b - mean * sc)
-            out = yv / (1.0 + tl.exp(-yv))
-            tl.store(y_ptr + base + idx, out.to(y_ptr.dtype.element_ty), mask=m)
-
-    _KERNELS = (gn_stats_kernel, gn_silu_apply_kernel)
-    return _KERNELS
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    span: int  # elements of a span: (C / groups) * H * W
+    cluster: int  # CTAs a span: 1, 2, 4 or 8
+    chunk: int  # elements a CTA (the last of a cluster may have fewer)
+    resident: bool  # the slice is kept in shared memory (else x is read twice)
+    vec: bool  # 16-byte units: H * W a multiple of 16 bytes
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+@functools.lru_cache(maxsize=None)
+def gn_plan(shape: tuple[int, ...], groups: int, elem_size: int, target: int = GN_SLICE_TARGET) -> GnPlan:
+    """The fewest CTAs a span, 1 to ``GN_MAX_CLUSTER``, that keep a slice at ``target`` bytes or under
+    (or the most); slices in whole 16-byte units where H*W allows; a slice is kept in shared memory
+    when it takes ``GN_MAX_SLICE_BYTES`` or fewer."""
+    _, c, h, w = shape
+    span = c // groups * h * w
+    vec = (h * w * elem_size) % 16 == 0
+    unit = 16 // elem_size if vec else 1
+    cluster = 1
+    while cluster < GN_MAX_CLUSTER and span * elem_size > cluster * target:
+        cluster *= 2
+    chunk = _cdiv(_cdiv(span, cluster), unit) * unit
+    return GnPlan(span, cluster, chunk, chunk * elem_size <= GN_MAX_SLICE_BYTES, vec)
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        fn = load_library("group_norm_silu").mrisr_group_norm_silu
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _FN = fn
+    return _FN
+
+
 def _launch(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
-    """Run the two Triton passes on a contiguous CUDA tensor (no counting)."""
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"group_norm_silu kernel takes a float tensor, got {x.dtype}")
+    """Launch the kernel on a contiguous CUDA tensor (no counting)."""
+    if x.dtype not in GN_DTYPES:
+        raise TypeError(f"group_norm_silu kernel takes float32, bfloat16 or float16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("group_norm_silu kernel needs a contiguous NCHW tensor")
     for name, t in (("weight", weight), ("bias", bias)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {x.device}")
-    stats_kernel, apply_kernel = _triton_kernels()
+    if weight.dtype != x.dtype or bias.dtype != x.dtype:
+        raise TypeError(f"weight and bias must be {x.dtype}, got {weight.dtype}, {bias.dtype}")
     b, c, h, w = x.shape
-    hw = h * w
-    cg = c // groups
-    group_numel = cg * hw
-    n_groups = b * groups
-    sms = _sm_count(x.device)
-    splits = max(1, min(_cdiv(PROGRAMS_PER_SM * sms, n_groups), MAX_SPLITS, _cdiv(group_numel, BLOCK)))
-    chunk = _cdiv(_cdiv(group_numel, splits), BLOCK) * BLOCK  # a whole number of BLOCKs
-    splits = _cdiv(group_numel, chunk)
-    if n_groups > 2**31 - 1 or splits > 65535:
-        raise ValueError(f"group_norm_silu kernel grid too large for {tuple(x.shape)}")
-    parts = torch.empty((n_groups, splits, 2), dtype=torch.float32, device=x.device)
+    plan = gn_plan(tuple(x.shape), groups, x.element_size())
     y = torch.empty_like(x)
-    grid = (n_groups, splits)
-    with torch.cuda.device(x.device):
-        stats_kernel[grid](x, parts, group_numel, chunk, splits, BLOCK=BLOCK, num_warps=8)
-        apply_kernel[grid](
-            x, y, weight, bias, parts, group_numel, hw, cg, groups, chunk, splits,
-            1.0 / group_numel, eps, NS=MAX_SPLITS, BLOCK=BLOCK, num_warps=8,
+    if y.numel() == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with device_ctx(x.device):
+        err = _kernel_fn()(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), b * groups, plan.span, h * w,
+            c // groups, groups, GN_DTYPES[x.dtype], plan.cluster, plan.chunk,
+            int(plan.resident), int(plan.vec and x.data_ptr() % 16 == 0), float(eps), stream,
         )
+    if err != 0:
+        raise RuntimeError(f"group_norm_silu kernel launch failed: cudaError {err}")
+    return y
+
+
+def _forward(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
+    y = _launch(x, weight, bias, groups, eps)
+    group_norm_silu.launches += 1
     return y
 
 
 class _GroupNormSiLU(torch.autograd.Function):
-    """Forward: the Triton kernel.  Backward: the exact composition, fp32 inside."""
+    """Forward: the kernel.  Backward: the exact composition, fp32 inside."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, groups, eps):
-        y = _launch(x, weight, bias, groups, eps)
-        group_norm_silu.launches += 1
+        y = _forward(x, weight, bias, groups, eps)
         ctx.save_for_backward(x, weight, bias)
         ctx.groups, ctx.eps = groups, eps
         return y
@@ -181,7 +149,7 @@ def group_norm_silu(
     """SiLU(GroupNorm(x)) on NCHW ``x``; fp32 statistics, output in ``x.dtype``.
 
     On a CPU tensor it runs :func:`group_norm_silu_plain`; on a CUDA tensor it
-    launches the Triton kernel or raises.  Differentiable on both.
+    launches the kernel or raises.  Differentiable on both.
     """
     if x.ndim != 4:
         raise ValueError(f"group_norm_silu takes NCHW, got shape {tuple(x.shape)}")
@@ -194,17 +162,15 @@ def group_norm_silu(
         return group_norm_silu_plain(x, weight, bias, groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _GroupNormSiLU.apply(x, weight, bias, groups, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return _GroupNormSiLU.apply(x, weight, bias, groups, eps)
+    return _forward(x, weight, bias, groups, eps)
 
 
 group_norm_silu.launches = 0
 
 
 def build(device: str = "cuda") -> None:
-    """Compile the Triton kernels for bf16 and fp32 inputs (one small launch each)."""
-    dev = resolve_device(device)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.zeros((1, 32, 8, 8), dtype=dtype, device=dev)
-        w = torch.ones(32, dtype=dtype, device=dev)
-        _launch(x, w, torch.zeros_like(w), 16, 1e-5)
-    torch.cuda.synchronize(dev)
+    """Compile (if needed) and load the kernel library."""
+    build_libraries(LIBRARIES, device)
+    _kernel_fn()

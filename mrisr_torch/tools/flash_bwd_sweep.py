@@ -93,8 +93,8 @@ VARIANTS.update({
         ("kConsumers = D == 32 ? 2 : 1;", "kConsumers = D == 128 ? 1 : 2;"),
         ("kStages = D == 128 ? 2 : 3;", "kStages = D == 32 ? 3 : 2;")],
     # Ablations, timed only.
-    "f32_ablate_1xtf32": [(_3X_SS, "wgmma_tf32_ss<N>(d, a_hi, b_hi, scale_d);"),
-                          (_3X_RS, "wgmma_tf32_rs<N>(d, a_hi, b_hi, scale_d);")],
+    "f32_ablate_1xtf32": [("hopper.cuh", _3X_SS, "wgmma_tf32_ss<N>(d, a_hi, b_hi, scale_d);"),
+                          ("hopper.cuh", _3X_RS, "wgmma_tf32_rs<N>(d, a_hi, b_hi, scale_d);")],
     # the first four anchors are bf16 dQ's (not timed here), the next four fp32 dQ's; then dK/dV's
     "f32_ablate_exp": [("ex2(fmaf(s[4 * j", "(fmaf(s[4 * j")] * 8
                       + [("p = ex2(fmaf(st_acc[4 * j + e]", "p = (fmaf(st_acc[4 * j + e]")] * 2,

@@ -1,14 +1,16 @@
-"""Time design variants of the bf16 flash-attention forward (``csrc/flash_attn_fwd.cu``) on one GPU.
+"""Time design variants of the flash-attention forward (``csrc/flash_attn_fwd.cu``) on one GPU.
 
 Run from the repository root: ``python3 -m mrisr_torch.tools.flash_fwd_sweep``.
 Each variant is the checked-in source with a few lines replaced; all are
 built at once with ``nvcc`` (the flags of ``mrisr_torch/_build.py``) under
 ``mrisr_torch/.build/sweep/flash_attn_fwd/`` and timed with CUDA events in turns (every
 variant, then every variant again in reverse order) on the chain's shapes,
-after its output is checked against the plain version.  It prints one JSON
-line per shape and, last, the card's name and power limit.
+after its output is checked against the plain version, in bf16 (the
+variants without a prefix) and in fp32 (``f32_*``; the 3xTF32 operands made
+once per shape).  It prints one JSON line per shape and, last, the card's
+name and power limit.
 
-Variants:
+bf16 variants:
 
 * ``design``: the source as it is;
 * ``pingpong_all`` / ``pingpong_none``: the two consumer warpgroups take
@@ -28,6 +30,20 @@ Variants:
 The shape list also holds 8x4224x4096x64: 264 CTAs of 128 Q rows, two full
 waves on 132 SMs, beside the chain's 8x4096 (256 CTAs), to show what the
 partly empty second wave costs at D=64.
+
+fp32 (3xTF32) variants, each an alternative to one choice of the design
+(two consumers and 64 keys a tile at D=32, one consumer and 64 keys at
+D=64, one and 32 at D=128; turns where there are two consumers):
+
+* ``f32_no_pingpong``: no turns;
+* ``f32_one_consumer_d32``: one consumer warpgroup (64 Q rows a CTA) at D=32;
+* ``f32_keys32_d32``: 32 keys a tile at D=32;
+* ``f32_two_consumers_d64``: two consumers (128 Q rows a CTA) and 32 keys a
+  tile at D=64;
+* ``f32_keys32_d64``: 32 keys a tile at D=64 (one consumer, 4 stages);
+* ablations, timed only (their results are wrong): ``f32_ablate_1xtf32``
+  (only the hi hi product of each 3xTF32 triple), ``f32_ablate_exp`` (no
+  exponentials).
 """
 from __future__ import annotations
 
@@ -46,6 +62,7 @@ from mrisr_torch.ops import flash_attention as fa
 
 SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4224, 4096, 64), (8, 16384, 256, 32),
           (8, 4096, 64, 64), (8, 4096, 4096, 128)]
+SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128)]
 
 _ONES = "        wgmma_rs<8>(l_acc, p[kk], make_desc(ones_s, 128, 256, 0));\n"
 _REGSUM = """#pragma unroll
@@ -101,6 +118,40 @@ VARIANTS = {
   }
 """)],
 }
+_F32_CONSUMERS = "kConsumers = D == 32 ? 2 : 1;"
+_F32_KEYS = "kKeys = D == 128 ? 32 : 64;"
+_F32_STAGES = "kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);"
+_F32_EXP = """s[4 * j] = ex2(s[4 * j] - n0);
+    s[4 * j + 1] = ex2(s[4 * j + 1] - n0);
+    s[4 * j + 2] = ex2(s[4 * j + 2] - n1);
+    s[4 * j + 3] = ex2(s[4 * j + 3] - n1);"""
+VARIANTS.update({
+    "f32_no_pingpong": [("kPingPong = kConsumers == 2;", "kPingPong = false;")],
+    "f32_one_consumer_d32": [(_F32_CONSUMERS, "kConsumers = 1;")],
+    "f32_keys32_d32": [(_F32_KEYS, "kKeys = D == 64 ? 64 : 32;")],
+    "f32_two_consumers_d64": [(_F32_CONSUMERS, "kConsumers = D == 128 ? 1 : 2;"),
+                              (_F32_KEYS, "kKeys = D == 32 ? 64 : 32;")],
+    "f32_keys32_d64": [(_F32_KEYS, "kKeys = D == 32 ? 64 : 32;"),
+                       (_F32_STAGES, "kStages = D == 128 ? 2 : 4;")],
+    # Ablations, for where the time goes (wrong results: timed only).
+    "f32_ablate_1xtf32": [
+        ("hopper.cuh", """for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 1), b(kk, 0), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 0), b(kk, 1), 1);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 0), b(kk, 0), 1);""",
+         "for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 0), b(kk, 0), kk > 0);"),
+        ("hopper.cuh", """for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_lo[kk], b(kk, 0), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_hi[kk], b(kk, 1), 1);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_hi[kk], b(kk, 0), 1);""",
+         "for (int kk = 0; kk < K; ++kk) wgmma_tf32_rs<N>(d, a_hi[kk], b(kk, 0), kk > 0);")],
+    "f32_ablate_exp": [(_F32_EXP, """s[4 * j] = s[4 * j] - n0;
+    s[4 * j + 1] = s[4 * j + 1] - n0;
+    s[4 * j + 2] = s[4 * j + 2] - n1;
+    s[4 * j + 3] = s[4 * j + 3] - n1;""")],
+})
 
 
 def apply_edits(src: str, edits: list, name: str = "") -> str:
@@ -117,8 +168,22 @@ def apply_edits(src: str, edits: list, name: str = "") -> str:
     return src
 
 
+def variant_sources(csrc, source: str, edits: list, name: str = "") -> dict:
+    """``{file name: text}`` of the files of the directory ``csrc`` that a variant's ``edits`` change.
+
+    An edit ``(anchor, replacement)`` applies to ``<source>.cu``; ``(file, anchor, replacement)`` to
+    another file of the directory (a header the source includes).
+    """
+    by_file: dict = {}
+    for edit in edits:
+        file, old, new = edit if len(edit) == 3 else (f"{source}.cu", *edit)
+        by_file.setdefault(file, []).append((old, new))
+    return {file: apply_edits((csrc / file).read_text(), file_edits, name) for file, file_edits in by_file.items()}
+
+
 def build_variants(variants: dict, source: str = "flash_attn_fwd") -> dict:
-    """Build every variant of ``csrc/<source>.cu`` (``{name: [(anchor, replacement), ...]}``) at once.
+    """Build every variant of ``csrc/<source>.cu`` (``{name: [edit, ...]}``, see :func:`variant_sources`)
+    at once.
 
     Returns ``{name: ctypes.CDLL}``; prints each variant's nvcc status, ptxas's performance and error
     notes and the kernels that spill.
@@ -129,8 +194,8 @@ def build_variants(variants: dict, source: str = "flash_attn_fwd") -> dict:
     for name, edits in variants.items():
         out = root / name
         shutil.copytree(_build.CSRC, out)
-        src = out / f"{source}.cu"
-        src.write_text(apply_edits(src.read_text(), edits, name))
+        for file, text in variant_sources(_build.CSRC, source, edits, name).items():
+            (out / file).write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / f"{source}.cu")]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -161,22 +226,29 @@ def card() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, iters: int = 30) -> dict:
+def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, dtype=torch.bfloat16, iters: int = 30) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(b + n + m + d)
-    q, k, v = (torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16) for s in (n, m, m))
+    q, k, v = (torch.randn((b, s, d), generator=gen, device="cuda").to(dtype) for s in (n, m, m))
     scale = 1.0 / math.sqrt(d)
     o, lse = torch.empty_like(q), torch.empty((b, n), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ref, ref_lse = fa.flash_attention_plain(q, k, v, scale)
+    bf16 = int(dtype == torch.bfloat16)
+    parts = None if bf16 else fa.tf32_fwd_parts(q, k, v)
+    ptrs = None if bf16 else (ctypes.c_void_p * len(parts))(*(parts[x].data_ptr() for x in fa.TF32_FWD_PARTS))
     calls = {name: (lambda fn=fn: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                     b, n, m, d, 1, scale, stream)) for name, fn in fns.items()}
-    rec = {"shape": [b, n, m, d], "max_abs_err": {}, "lse_max_abs_err": {}, "ms": {name: [] for name in fns}}
+                                     b, n, m, d, bf16, scale, ptrs, stream)) for name, fn in fns.items()}
+    rec = {"shape": [b, n, m, d], "dtype": str(dtype).split(".")[-1], "max_abs_err": {}, "lse_max_abs_err": {},
+           "ms": {name: [] for name in fns}}
     for name, call in calls.items():
         if call() != 0:
             raise RuntimeError(f"variant {name} failed to launch")
         torch.cuda.synchronize()
         rec["max_abs_err"][name] = float((o.float() - ref.float()).abs().max())
         rec["lse_max_abs_err"][name] = float((lse - ref_lse).abs().max())
+    for call in calls.values():  # every variant warm, so the first timed slot is not the card's ramp-up
+        for _ in range(5):
+            call()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for order in (list(calls), list(reversed(calls))):
         for name in order:
@@ -197,7 +269,11 @@ def main() -> int:
         return 1
     fns = {name: entry(lib, "mrisr_flash_attn_fwd") for name, lib in build_variants(VARIANTS).items()}
     for shape in SHAPES:
-        print(json.dumps(sweep_shape(fns, *shape)), flush=True)
+        print(json.dumps(sweep_shape({k: f for k, f in fns.items() if not k.startswith("f32_")}, *shape)),
+              flush=True)
+    for shape in SHAPES_F32:
+        f32 = {k: f for k, f in fns.items() if k == "design" or k.startswith("f32_")}
+        print(json.dumps(sweep_shape(f32, *shape, dtype=torch.float32)), flush=True)
     print(card(), flush=True)
     return 0
 

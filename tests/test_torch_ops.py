@@ -329,12 +329,14 @@ def _sweep_variants():
 
 @pytest.mark.parametrize("source, name, edits", _sweep_variants(), ids=lambda x: x if isinstance(x, str) else "")
 def test_sweep_variants_apply_to_the_sources(source, name, edits):
-    """Every design variant of the two sweeps finds its anchors in the checked-in source and changes it."""
-    from mrisr_torch.tools.flash_fwd_sweep import apply_edits
+    """Every design variant of the two sweeps finds its anchors in the checked-in sources (the kernel's
+    own, or a header it includes) and changes them."""
+    from mrisr_torch.tools.flash_fwd_sweep import variant_sources
 
-    src = (REPO / "mrisr_torch" / "csrc" / f"{source}.cu").read_text()
-    out = apply_edits(src, edits, name)
-    assert (out == src) == (not edits)
+    csrc = REPO / "mrisr_torch" / "csrc"
+    out = variant_sources(csrc, source, edits, name)
+    assert sorted(out) == sorted({e[0] if len(e) == 3 else f"{source}.cu" for e in edits})
+    assert all(text != (csrc / file).read_text() for file, text in out.items())
 
 
 def test_sweep_anchors_match_on_code_tokens():
