@@ -28,22 +28,41 @@ result.  Each phase prints JSON lines:
    at all 13 shapes of the UNet;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
    through ``ResDiffPipeline.super_resolve``, in the fast (ca_kv_pool=8) and
-   exact (ca_kv_pool=0) profiles, with the kernels' launch counts checked,
-   then one more chain of each profile traced with ``torch.profiler``
-   (``profile``: the device's busy time, idle share and largest kernels);
-5. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
+   exact (ca_kv_pool=0) profiles, as a captured CUDA graph (the first call
+   warms up, captures and replays) and eagerly: the launch counts of one
+   replay and of one eager chain, their agreement (also from one generator),
+   wall and CUDA-event ms of each; then one traced chain of each mode
+   (``profile``: the device's busy time, idle share, largest kernels, and
+   the kernels counted in the trace);
+5. ``checkpoint``: the trained checkpoint ``ckpt_256_r3.msgpack`` read by the
+   port's msgpack reader, its EMA UNet's fp32 eps against the JAX package's
+   stored one (``PARITY_TORCH_CKPT_ref.npz``, from
+   ``tools/torch_ckpt_chain.py``), the fp32 50-step chains in both profiles
+   held to 0.01 dB per image against the stored JAX chains' PSNR, then the
+   bf16 serving chains (PSNR and SSIM, and the stored JAX bf16 chains' PSNR
+   beside them, for information);
+6. ``volume``: a synthetic 220x220x40 NIfTI through ``super_resolve_volume``
+   at 256^2, bs 8, bf16, 50 steps, grouped (G=2, graphed) and serial: equal
+   volumes, seconds per volume and slices per second;
+7. ``ddpm``: one full-length (1000-step) ancestral chain at bs 8, bf16,
+   fast profile, run eagerly;
+8. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
    against the plain path on the CPU, and the same for the reference's
    parity-harness UNet (128^2, inner 16, 8 norm groups), whose 64^2
    cross-attention has heads of D=16 (padded to 32);
-6. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
+9. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
    EMA 0.999) through ``make_resdiff_train_step``: 3 in fp32, 3 with the bf16
    policy, 1 with bf16 and remat, each with its launch counts, loss,
    parameter and EMA movement, ms and peak memory; then one traced step of
    each policy (``train_profile``, bf16 and float32);
-7. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
+10. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
    dropout 0, kernels on) against the CPU plain path, per parameter; and
-   the same for the parity-harness UNet.
+   the same for the parity-harness UNet;
+11. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles) in
+   a subprocess, its JSON line echoed.
 
+Each main path (chain, checkpoint, volume, ddpm, train) is driven with the
+kernels' launch counts set to 0 just before it and read just after.
 Then the kernels summary line, the nvidia-smi line, and last the result line.
 ``--phases a,b`` runs only the named phases (device and build always run);
 ``--log FILE`` also writes every JSON line to FILE.
@@ -508,6 +527,61 @@ def check_gn(torch, F, dtype, case, shape, groups, timed, backward=False):
     return rec
 
 
+def graphed(torch, fn, inputs):
+    """``fn(*inputs)`` captured in a CUDA graph (after one eager warm-up call): (graph, static output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*inputs)
+    return graph, out
+
+
+def check_captured(torch):
+    """B1 (bf16, and fp32 with its 3xTF32 prep) and B3 (bf16 and fp32) captured in a CUDA graph at main-path
+    shapes, replayed on new inputs copied into the captured ones, against their plain versions there."""
+    from mrisr_torch.ops import flash_attention as fa
+    from mrisr_torch.ops import groupnorm as gn
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        _, b, n, m, d = FLASH_CASES[2]
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = flash_inputs(torch, dtype, "graph", 31, [(b, n), (b, m), (b, m)], d)
+        graph, (o, lse) = graphed(torch, lambda *t: fa.flash_attention_fwd(*t, scale), (q, k, v))
+        for t, new in zip((q, k, v), flash_inputs(torch, dtype, "graph", 32, [(b, n), (b, m), (b, m)], d)):
+            t.copy_(new)
+        graph.replay()
+        ro, rlse = fa.flash_attention_plain(q, k, v, scale)
+        tol = FLASH_TOL[name]
+        ref = ro.float()
+        rms_ref = float(ref.square().mean().sqrt())
+        err = (o.float() - ref).abs()
+        ok = (bool((err <= tol["o_atol_rms"] * rms_ref + tol["o_rtol"] * ref.abs()).all())
+              and float(err.square().mean().sqrt()) / rms_ref <= tol["o_rms_rel"]
+              and bool(((lse - rlse).abs() <= tol["lse_atol"]).all()))
+        emit({"phase": "kernel", "kernel": "flash_attention_fwd", "case": "cuda_graph_replay", "dtype": name,
+              "shape": [b, n, m, d], "max_abs_err": float(err.max()), "tolerance": tol, "ok": ok})
+        shape, groups = GN_CASES[0][1], GN_CASES[0][2]
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        x, w, bias = ((torch.randn(s_, generator=gen, device="cuda") + 0.5).to(dtype) for s_ in (shape, shape[1:2],
+                                                                                                  shape[1:2]))
+        graph, y = graphed(torch, lambda *t: gn.group_norm_silu(*t, groups, 1e-5), (x, w, bias))
+        x.copy_(torch.randn(shape, generator=gen, device="cuda") * 2.0)
+        graph.replay()
+        ref = gn.group_norm_silu_plain(x, w, bias, groups, 1e-5).float()
+        err = (y.float() - ref).abs()
+        ok_gn = bool((err <= GN_TOL[name]["atol"] + GN_TOL[name]["rtol"] * ref.abs()).all())
+        emit({"phase": "kernel", "kernel": "group_norm_silu", "case": "cuda_graph_replay", "dtype": name,
+              "shape": list(shape), "groups": groups, "max_abs_err": float(err.max()), "tolerance": GN_TOL[name],
+              "ok": ok_gn})
+        if not (ok and ok_gn):
+            raise AssertionError(f"a kernel replayed from a CUDA graph disagrees with its plain version ({name})")
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
@@ -525,16 +599,19 @@ def phase_kernels(torch):
         for case in GN_RAGGED:
             recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=False))
     check_flash_autograd(torch)
+    check_captured(torch)
     return recs
 
 
-def profile_chain(torch, run, chain_ms, top=12, ranges=()):
+def profile_chain(torch, run, chain_ms, top=12, ranges=(), kernel_parts=()):
     """Device time of one chain (or one training step) by kernel, from ``torch.profiler``.
 
     The device's busy time is the sum of the times of the events that ran on
     the device (kernels, copies; one stream, so they do not overlap). Its
     idle share is taken against ``chain_ms``, the same chain timed without the
-    profiler, and against the profiled chain's own wall time.
+    profiler, and against the profiled chain's own wall time.  ``kernel_parts``
+    maps a name to a part of kernel names: the device events whose name holds
+    each part are counted (``kernel_events``).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -556,60 +633,322 @@ def profile_chain(torch, run, chain_ms, top=12, ranges=()):
     return {"device_busy_ms": busy_ms, "ranges": in_ranges, "idle_share": 1.0 - busy_ms / chain_ms,
             "profiled_chain_ms": profiled_ms, "profiled_idle_share": 1.0 - busy_ms / profiled_ms,
             "device_events": sum(r[2] for r in rows),
+            "kernel_events": {name: sum(n for k, _, n in rows if part in k) for name, part in dict(kernel_parts).items()},
             "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]}
 
 
-def phase_chain(torch):
+# The parts of the kernels' names in a trace, by launch counter.
+KERNEL_PARTS = {"flash_attention_fwd": "flash_fwd_", "group_norm_silu": "gn_silu_kernel"}
+
+
+def timed_chains(torch, run, reps):
+    """Wall ms (host clock around the call and a synchronize) and CUDA-event ms of ``reps`` calls."""
+    walls, events = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return walls, events
+
+
+def counted(torch, run):
+    """``run()`` with the launch counts set to 0 just before it and read just after: (result, counts)."""
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def add_counts(totals, counts):
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+
+
+def chain_expect(steps, n_chains=1):
+    """Launches of ``n_chains`` 256^2 serving chains of ``steps`` steps: two CA sites with >= 4096 tokens
+    (the 128^2 and 64^2 skips), 29 ConvBlock heads (two per ResnetBlock, 14 ResnetBlocks, final_conv); no
+    backward kernel."""
+    return {"flash_attention_fwd": 2 * steps * n_chains, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "group_norm_silu": 29 * steps * n_chains}
+
+
+def serving_pipeline(torch, kv_pool, dtype=None, cuda_graph=True):
+    """The serving configuration (``bench.py``'s): SimpleCNN, ResDiffUNet at 256^2, random weights from fixed
+    seeds, cast to ``dtype`` (bf16 by default)."""
     from mrisr_torch.diffusion.schedules import resdiff_schedule
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.models.simple_cnn import SimpleCNN
-    from mrisr_torch.ops import launch_counts, reset_launch_counts
     from mrisr_torch.pipelines.resdiff import ResDiffPipeline
 
-    n_sites = 2  # CA sites with >= 4096 tokens at 256^2: the 128^2 and 64^2 skips
-    n_gn = 2 * 14 + 1  # two ConvBlocks per ResnetBlock, 14 ResnetBlocks, plus final_conv
-    # A serving chain launches no backward kernel.
-    expect = {"flash_attention_fwd": n_sites * STEPS, "flash_attention_bwd_dq": 0,
-              "flash_attention_bwd_dkv": 0, "group_norm_silu": n_gn * STEPS}
-    totals = {k: 0 for k in expect}
+    dtype = dtype or torch.bfloat16
+    torch.manual_seed(0)  # the same random weights in every profile
+    cnn = SimpleCNN(device="cuda").to(dtype)
+    unet = ResDiffUNet(image_size=SIZE, ca_kv_pool=kv_pool, device="cuda").to(dtype)
+    return ResDiffPipeline(cnn, unet, resdiff_schedule(1000), device="cuda", cuda_graph=cuda_graph)
+
+
+CHAIN_REPS = 3  # timed calls of each chain, graph and eager
+
+
+def phase_chain(torch):
+    """The bf16 serving chain as a captured CUDA graph and eagerly, in both profiles."""
+    from mrisr_torch.pipelines.resdiff import ResDiffPipeline
+
+    expect = chain_expect(STEPS)
+    totals = {}
     outs = {}
     for profile, kv_pool in (("fast", 8), ("exact", 0)):
-        torch.manual_seed(0)  # the same random weights in both profiles
-        cnn = SimpleCNN(device="cuda").to(torch.bfloat16)
-        unet = ResDiffUNet(image_size=SIZE, ca_kv_pool=kv_pool, device="cuda").to(torch.bfloat16)
-        pipe = ResDiffPipeline(cnn, unet, resdiff_schedule(1000), device="cuda")
+        pipe = serving_pipeline(torch, kv_pool)
+        eager = ResDiffPipeline(pipe.cnn, pipe.unet, pipe.sched, device="cuda", cuda_graph=False)
         gen = torch.Generator(device="cuda").manual_seed(1)
         lr = (torch.rand((BATCH, SIZE, SIZE, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
         x_T = torch.randn((BATCH, SIZE, SIZE, 1), generator=gen, device="cuda").to(torch.bfloat16)
 
-        torch.cuda.synchronize()
-        reset_launch_counts()
+        # First call: one eager warm-up chain, the capture, one replay.
         t0 = time.perf_counter()
-        out = pipe.super_resolve(lr, x_T=x_T, num_steps=STEPS)
-        torch.cuda.synchronize()
+        out, first_counts = counted(torch, lambda: pipe.super_resolve(lr, x_T=x_T, num_steps=STEPS))
         first_ms = (time.perf_counter() - t0) * 1e3
-        counts = launch_counts()
-        if counts != expect:
-            raise AssertionError(f"{profile}: launch counts {counts}, expected {expect}")
-        for k in totals:
-            totals[k] += counts[k]
+        if first_counts != {k: 2 * n for k, n in expect.items()} or len(pipe.graphs) != 1:
+            raise AssertionError(f"{profile}: first call's launch counts {first_counts}, expected twice {expect}")
         if tuple(out.shape) != (BATCH, SIZE, SIZE, 1) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{profile}: bad output {tuple(out.shape)}")
-
-        t0 = time.perf_counter()
-        again = pipe.super_resolve(lr, x_T=x_T, num_steps=STEPS)
-        torch.cuda.synchronize()
-        chain_ms = (time.perf_counter() - t0) * 1e3
+        # The main path: one replay, counted; then the same chain eagerly.
+        again, counts = counted(torch, lambda: pipe.super_resolve(lr, x_T=x_T, num_steps=STEPS))
+        eager_out, eager_counts = counted(torch, lambda: eager.super_resolve(lr, x_T=x_T, num_steps=STEPS))
+        if counts != expect or eager_counts != expect:
+            raise AssertionError(f"{profile}: launch counts graph {counts}, eager {eager_counts}, expected {expect}")
+        add_counts(totals, counts)
+        # Graph and eager from the same generator (x_T drawn from it outside the graph).
+        from_gen = [p.super_resolve(lr, torch.Generator(device="cuda").manual_seed(5), num_steps=STEPS)
+                    for p in (pipe, eager)]
+        graph_ms, graph_event_ms = timed_chains(torch, lambda: pipe.super_resolve(lr, x_T=x_T, num_steps=STEPS),
+                                                CHAIN_REPS)
+        eager_ms, eager_event_ms = timed_chains(torch, lambda: eager.super_resolve(lr, x_T=x_T, num_steps=STEPS),
+                                                CHAIN_REPS)
         outs[profile] = out.float()
-        emit({"phase": "chain", "profile": profile, "ca_kv_pool": kv_pool, "batch": BATCH, "size": SIZE,
-              "steps": STEPS, "dtype": "bfloat16", "launches": counts, "first_chain_ms": first_ms,
-              "chain_ms": chain_ms, "slices_per_s": BATCH / (chain_ms / 1e3),
-              "repeat_max_abs_diff": float((again.float() - out.float()).abs().max()),
-              "out_abs_max": float(out.float().abs().max())})
-        rec = profile_chain(torch, lambda: pipe.super_resolve(lr, x_T=x_T, num_steps=STEPS), chain_ms)
-        emit({"phase": "profile", "profile": profile, "chain_ms": chain_ms, **rec})
+        diff_gen = float((from_gen[0].float() - from_gen[1].float()).abs().max())
+        rec = {"phase": "chain", "profile": profile, "ca_kv_pool": kv_pool, "batch": BATCH, "size": SIZE,
+               "steps": STEPS, "dtype": "bfloat16", "launches": counts, "eager_launches": eager_counts,
+               "first_call_launches": first_counts, "first_call_ms": first_ms,
+               "graph_chain_ms": graph_ms, "graph_event_ms": graph_event_ms, "eager_chain_ms": eager_ms,
+               "eager_event_ms": eager_event_ms, "chain_ms": min(graph_ms),
+               "slices_per_s": BATCH / (min(graph_ms) / 1e3), "eager_slices_per_s": BATCH / (min(eager_ms) / 1e3),
+               "repeat_max_abs_diff": float((again.float() - out.float()).abs().max()),
+               "graph_vs_eager_max_abs_diff": float((again.float() - eager_out.float()).abs().max()),
+               "graph_vs_eager_same_generator_max_abs_diff": diff_gen,
+               "out_abs_max": float(out.float().abs().max())}
+        emit(rec)
+        # A graphed chain replays the same kernels as the eager one: nothing else is compared, so the two
+        # agree to the last bit unless an algorithm choice differs (bf16 rounding of one op: 2^-7).
+        if max(rec["graph_vs_eager_max_abs_diff"], diff_gen) > 2.0**-6 or rec["repeat_max_abs_diff"] != 0.0:
+            raise AssertionError(f"{profile}: the graphed chain disagrees with the eager chain: {rec}")
+        for mode, p, ms in (("graph", pipe, min(graph_ms)), ("eager", eager, min(eager_ms))):
+            prof = profile_chain(torch, lambda: p.super_resolve(lr, x_T=x_T, num_steps=STEPS), ms,
+                                 kernel_parts=KERNEL_PARTS)
+            emit({"phase": "profile", "profile": profile, "mode": mode, "chain_ms": ms, **prof})
+            seen = prof["kernel_events"]
+            # The trace shows each kernel the wrappers counted, and no more launches of it (the tracer may
+            # miss a few events at the start of a window: one graphed exact chain's trace lacked 5 of 1450).
+            if prof["device_events"] and any(not 0 < seen[k] <= expect[k] for k in KERNEL_PARTS):
+                raise AssertionError(f"{profile} {mode}: kernels in the trace {seen}, launches {expect}")
     emit({"phase": "chain", "fast_vs_exact_max_abs_diff": float((outs["fast"] - outs["exact"]).abs().max())})
     return totals
+
+
+CKPT = "ckpt_256_r3.msgpack"
+CKPT_REF = "PARITY_TORCH_CKPT_ref.npz"  # tools/torch_ckpt_chain.py: the JAX package's run on the CPU
+CKPT_UNET = dict(image_size=SIZE, inner_channel=32, norm_groups=8)  # the checkpoint's configuration
+CKPT_BAR_DB = 0.01  # per image, against the JAX chain's PSNR
+
+
+def psnr_ssim(torch, final, hr):
+    """Per-image PSNR and SSIM (the port's metrics, fp32 on the CPU) of ``[B, H, W, 1]`` images clipped to
+    [0, 1], as ``tools/torch_ckpt_chain.py`` scores them."""
+    from mrisr_torch.eval.metrics import compute_mri_metrics_per_image
+
+    nchw = lambda a: torch.as_tensor(a).float().cpu().clamp(0, 1).permute(0, 3, 1, 2).contiguous()  # noqa: E731
+    p, s, _, _ = compute_mri_metrics_per_image(nchw(final), nchw(hr))
+    return [float(v) for v in p], [float(v) for v in s]
+
+
+def checkpoint_pipeline(torch, tree, kv_pool, dtype):
+    """The trained checkpoint's EMA UNet behind an identity stage 1 (SimpleCNN with zero weights: its
+    residual path), so the chain's condition is the stored one."""
+    from mrisr_torch.diffusion.schedules import resdiff_schedule
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+    from mrisr_torch.models.simple_cnn import SimpleCNN
+    from mrisr_torch.pipelines.resdiff import ResDiffPipeline
+    from mrisr_torch.weights import load_flax_params
+
+    unet = ResDiffUNet(**CKPT_UNET, ca_kv_pool=kv_pool, device="cuda")
+    load_flax_params(unet, tree["ema"])
+    cnn = SimpleCNN(device="cuda")
+    with torch.no_grad():
+        for p in cnn.parameters():
+            p.zero_()
+    return ResDiffPipeline(cnn.to(dtype), unet.to(dtype), resdiff_schedule(1000), device="cuda")
+
+
+def phase_checkpoint(torch):
+    """The trained checkpoint on the card against the JAX package's stored run: the fp32 eps forward and the
+    fp32 50-step chains in both profiles, then the bf16 serving chains (for information)."""
+    import numpy as np
+
+    from mrisr_torch.utils.flax_msgpack import read_msgpack
+
+    t0 = time.perf_counter()
+    tree = read_msgpack(CKPT)
+    read_s = time.perf_counter() - t0
+    ref = np.load(CKPT_REF)
+    cond, x_T, hr = (torch.from_numpy(ref[k]).cuda() for k in ("cond", "x_T", "hr"))
+    b = cond.shape[0]
+    totals = {}
+
+    exact = checkpoint_pipeline(torch, tree, 0, torch.float32)
+    x = torch.cat([cond, x_T], dim=-1).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        eps = exact.unet(x, torch.from_numpy(ref["eps_gamma"]).cuda()).permute(0, 2, 3, 1).cpu()
+    want = torch.from_numpy(ref["eps"])
+    err = (eps - want).abs()
+    ok = bool((err <= FORWARD_TOL["atol"] + FORWARD_TOL["rtol"] * want.abs()).all())
+    emit({"phase": "checkpoint", "case": "eps_forward", "dtype": "float32", "tf32": False, "shape": list(x.shape),
+          "checkpoint_step": tree["step"], "read_s": read_s, "max_abs_err": float(err.max()),
+          "tolerance": FORWARD_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the checkpoint's fp32 eps on the card disagrees with JAX's: {float(err.max())}")
+
+    fp32_psnr = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for profile, kv_pool in (("exact", 0), ("fast", 8)):
+            pipe = exact if (dtype, kv_pool) == (torch.float32, 0) else checkpoint_pipeline(torch, tree, kv_pool, dtype)
+            run = lambda: pipe.super_resolve(cond.to(dtype), x_T=x_T.to(dtype), num_steps=STEPS)  # noqa: E731
+            run()  # warm-up and capture
+            out, counts = counted(torch, run)
+            add_counts(totals, counts)
+            psnr_jax, _ = psnr_ssim(torch, ref[f"final_{profile}"], ref["hr"])
+            psnr, ssim = psnr_ssim(torch, out, hr)
+            delta = [abs(a - b_) for a, b_ in zip(psnr, psnr_jax)]
+            rec = {"phase": "checkpoint", "case": "chain", "dtype": name, "profile": profile, "ca_kv_pool": kv_pool,
+                   "images": b, "steps": STEPS, "cuda_graph": pipe.cuda_graph, "launches": counts,
+                   "psnr": psnr, "ssim": ssim, "psnr_jax_fp32_cpu": psnr_jax, "abs_delta_db": delta,
+                   "final_max_abs_diff_vs_jax": float((out.float().cpu() - torch.from_numpy(ref[f"final_{profile}"]))
+                                                      .abs().max())}
+            if dtype == torch.float32:
+                fp32_psnr[profile] = psnr
+                rec.update(bar_db=CKPT_BAR_DB, ok=max(delta) <= CKPT_BAR_DB and counts == chain_expect(STEPS))
+            else:
+                psnr_jax_bf16, _ = psnr_ssim(torch, ref[f"final_{profile}_bf16"], ref["hr"])
+                rec["note"] = "bf16 serving chain: no bar, for information"
+                rec["delta_vs_fp32_card_db"] = [a - b_ for a, b_ in zip(psnr, fp32_psnr[profile])]
+                rec["psnr_jax_bf16_cpu"] = psnr_jax_bf16
+                rec["abs_delta_vs_jax_bf16_db"] = [abs(a - b_) for a, b_ in zip(psnr, psnr_jax_bf16)]
+            emit(rec)
+            if rec.get("ok") is False:
+                raise AssertionError(f"the checkpoint's fp32 {profile} chain misses {CKPT_BAR_DB} dB: {rec}")
+    return totals
+
+
+VOLUME_SHAPE, VOLUME_GROUP = (220, 220, 40), 2
+
+
+def phase_volume(torch):
+    """A synthetic 220x220x40 NIfTI through ``super_resolve_volume`` at 256^2, bs 8, bf16, 50 steps (fast
+    profile), grouped (G = 2, graphed) against serial dispatch."""
+    import tempfile
+
+    import numpy as np
+
+    from mrisr_torch.data.nifti import write_nifti
+    from mrisr_torch.pipelines.volume import super_resolve_volume
+
+    pipe = serving_pipeline(torch, 8)
+    rng = np.random.default_rng(3)
+    xx, yy = np.meshgrid(np.linspace(-1, 1, VOLUME_SHAPE[0]), np.linspace(-1, 1, VOLUME_SHAPE[1]), indexing="ij")
+    head = (xx**2 + yy**2 < 0.8)[..., None] * np.linspace(300, 900, VOLUME_SHAPE[2])[None, None, :]
+    vol = (head + rng.normal(0, 40, VOLUME_SHAPE)).astype(np.float32)
+    kw = dict(resolution=SIZE, batch_size=BATCH, num_steps=STEPS, seed=7)
+    n_batches = -(-VOLUME_SHAPE[2] // BATCH)
+    expect = {"grouped": chain_expect(STEPS, -(-n_batches // VOLUME_GROUP) * VOLUME_GROUP),
+              "serial": chain_expect(STEPS, n_batches)}
+    runs = {"grouped": [], "serial": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = f"{tmp}/synthetic.nii.gz"
+        write_nifti(src, vol, np.diag([1.0, 1.0, 3.0, 1.0]))
+        super_resolve_volume(pipe, src, chain_group=VOLUME_GROUP, **kw)  # warm-up and capture
+        # NIfTI in, NIfTI out (gzipped), in turns; the write alone is timed after.
+        for mode in ("grouped", "serial", "serial", "grouped"):
+            group = VOLUME_GROUP if mode == "grouped" else 1
+            t0 = time.perf_counter()
+            img, counts = counted(torch, lambda: super_resolve_volume(pipe, src, f"{tmp}/{mode}.nii.gz",
+                                                                      chain_group=group, **kw))
+            runs[mode].append((time.perf_counter() - t0, counts, img))
+        t0 = time.perf_counter()
+        write_nifti(f"{tmp}/again.nii.gz", img.data, img.affine)
+        write_s = time.perf_counter() - t0
+    grouped, serial = runs["grouped"][0][2], runs["serial"][0][2]
+    same = all(np.array_equal(r[2].data, serial.data) for rs in runs.values() for r in rs)
+    ok = (same and grouped.data.shape == VOLUME_SHAPE and bool(np.isfinite(grouped.data).all())
+          and all(r[1] == expect[mode] for mode, rs in runs.items() for r in rs))
+    emit({"phase": "volume", "shape": list(VOLUME_SHAPE), "resolution": SIZE, "batch": BATCH, "steps": STEPS,
+          "dtype": "bfloat16", "ca_kv_pool": 8, "chain_group": VOLUME_GROUP, "launches": runs["grouped"][0][1],
+          "serial_launches": runs["serial"][0][1],
+          "grouped_s_per_volume": [r[0] for r in runs["grouped"]], "serial_s_per_volume": [r[0] for r in runs["serial"]],
+          "grouped_slices_per_s": [VOLUME_SHAPE[2] / r[0] for r in runs["grouped"]],
+          "serial_slices_per_s": [VOLUME_SHAPE[2] / r[0] for r in runs["serial"]], "gzip_write_s": write_s,
+          "grouped_equals_serial": same, "out_range": [float(grouped.data.min()), float(grouped.data.max())],
+          "ok": ok})
+    if not ok:
+        raise AssertionError("volume: grouped dispatch disagrees with serial dispatch or launched other kernels")
+    counts = {}
+    for rs in runs.values():  # the launches of every volume run of the path
+        for r in rs:
+            add_counts(counts, r[1])
+    return counts
+
+
+DDPM_T = 1000
+
+
+def phase_ddpm(torch):
+    """One full-length ancestral chain (1000 steps, eager: its noise comes from the generator each step) at
+    bs 8, bf16, fast profile."""
+    pipe = serving_pipeline(torch, 8)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    lr = (torch.rand((BATCH, SIZE, SIZE, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    out, counts = counted(torch, lambda: pipe.super_resolve(lr, gen, num_steps=None))
+    ms = (time.perf_counter() - t0) * 1e3
+    ok = (bool(torch.isfinite(out).all()) and tuple(out.shape) == (BATCH, SIZE, SIZE, 1)
+          and counts == chain_expect(DDPM_T) and not pipe.graphs)
+    emit({"phase": "ddpm", "steps": DDPM_T, "batch": BATCH, "size": SIZE, "dtype": "bfloat16", "ca_kv_pool": 8,
+          "cuda_graph": False, "launches": counts, "chain_ms": ms, "ms_per_step": ms / DDPM_T,
+          "out_abs_max": float(out.float().abs().max()), "ok": ok})
+    if not ok:
+        raise AssertionError(f"ddpm: a non-finite output or launch counts {counts}")
+    return counts
+
+
+BENCH_RUNS = (["--fast", "8"], ["--fast", "0"])
+
+
+def phase_bench():
+    """``python3 -m mrisr_torch.bench`` in a subprocess per profile; its JSON line echoed."""
+    for extra in BENCH_RUNS:
+        proc = subprocess.run([sys.executable, "-m", "mrisr_torch.bench", *extra], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"mrisr_torch.bench {extra} failed: {proc.stderr[-3000:]}")
+        emit({"phase": "bench", "args": extra, **json.loads(proc.stdout.strip().splitlines()[-1])})
 
 
 def phase_forward(torch):
@@ -798,15 +1137,17 @@ KERNELS = [  # (name, route, source, the TPU kernel it replaces)
 ]
 
 
-def summary(recs, chain_totals, train_totals):
-    """The kernels line: launches are those of the main paths (serving chains and training steps)."""
+def summary(recs, path_launches):
+    """The kernels line: launches are those of the main paths (``path_launches``: each path's counts, set to 0
+    just before it was driven and read just after)."""
     entries = []
     for name, route, source, replaces in KERNELS:
         main = next(r for r in recs[name] if "ms" in r and r["dtype"] == "bfloat16")  # heaviest main-path shape
+        by_path = {path: counts.get(name, 0) for path, counts in path_launches.items()}
         entries.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": chain_totals[name] + train_totals[name], "launches_serving_chains": chain_totals[name],
-            "launches_training_steps": train_totals[name], "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "device_ms": main.get("device_ms"),
             "case": main["case"], "shape": main["shape"],
@@ -814,7 +1155,9 @@ def summary(recs, chain_totals, train_totals):
     return {"kernels": entries}
 
 
-PHASES = ("kernel", "chain", "forward", "train", "grad")
+PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "forward", "train", "grad", "bench")
+# Paths whose launches the kernels line counts; serving paths launch no backward kernel.
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "train")
 
 
 def main(argv) -> int:
@@ -847,14 +1190,25 @@ def main(argv) -> int:
     smi = phase_device(torch)
     phase_build(torch)
     recs = phase_kernels(torch) if "kernel" in phases else None
-    chain_totals = phase_chain(torch) if "chain" in phases else None
+    path_launches = {}
+    for name, run in (("chain", phase_chain), ("checkpoint", phase_checkpoint), ("volume", phase_volume),
+                      ("ddpm", phase_ddpm)):
+        if name in phases:
+            path_launches[name] = run(torch)
     if "forward" in phases:
         phase_forward(torch)
-    train_totals = phase_train(torch) if "train" in phases else None
+    if "train" in phases:
+        path_launches["train"] = phase_train(torch)
     if "grad" in phases:
         phase_grad(torch)
-    if recs and chain_totals and train_totals:
-        emit(summary(recs, chain_totals, train_totals))
+    if "bench" in phases:
+        phase_bench()
+    if recs and set(path_launches) == set(MAIN_PATHS):
+        summary_line = summary(recs, path_launches)
+        emit(summary_line)
+        unlaunched = [e["name"] for e in summary_line["kernels"] if e["launches"] == 0]
+        if unlaunched:
+            raise AssertionError(f"kernels the main paths never launched: {unlaunched}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

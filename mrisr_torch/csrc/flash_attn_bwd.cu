@@ -1156,7 +1156,7 @@ cudaError_t launch_dq(const Args& a, void* dq, bool bf16) {
         !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kKeys)) {
       return cudaErrorInvalidValue;
     }
-    const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, T::kSmemBytes);
+    static const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
     if (err != cudaSuccess) return err;
     const dim3 grid((a.N + T::kRowsQ - 1) / T::kRowsQ, a.B);
     flash_bwd_dq_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
@@ -1165,7 +1165,7 @@ cudaError_t launch_dq(const Args& a, void* dq, bool bf16) {
     using T = DqF32Tiles<D>;
     F32Maps m;
     if (a.parts == nullptr || !encode_f32_maps<D>(&m, a, T::kRowsQ, T::kKeys, T::kKeys)) return cudaErrorInvalidValue;
-    const cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, T::kSmemBytes);
+    static const cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, T::kSmemBytes);  // once per kernel
     if (err != cudaSuccess) return err;
     const dim3 grid((a.N + T::kRowsQ - 1) / T::kRowsQ, a.B);
     flash_bwd_dq_f32_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
@@ -1186,7 +1186,7 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
         !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kRowsKV)) {
       return cudaErrorInvalidValue;
     }
-    const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, T::kSmemBytes);
+    static const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
     if (err != cudaSuccess) return err;
     const dim3 grid((a.M + T::kRowsKV - 1) / T::kRowsKV, a.B);
     using E = __nv_bfloat16;
@@ -1198,7 +1198,7 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
     if (a.parts == nullptr || !encode_f32_maps<D>(&m, a, T::kQueries, T::kRowsKV, T::kQueries)) {
       return cudaErrorInvalidValue;
     }
-    const cudaError_t err = allow_smem(flash_bwd_dkv_f32_kernel<D>, T::kSmemBytes);
+    static const cudaError_t err = allow_smem(flash_bwd_dkv_f32_kernel<D>, T::kSmemBytes);  // once per kernel
     if (err != cudaSuccess) return err;
     const dim3 grid((a.M + T::kRowsKV - 1) / T::kRowsKV, a.B);
     flash_bwd_dkv_f32_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(

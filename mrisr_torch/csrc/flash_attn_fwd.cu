@@ -733,7 +733,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
     return cudaErrorInvalidValue;
   }
   const dim3 grid((N + T::kRowsQ - 1) / T::kRowsQ, B);
-  const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmemBytes);
+  static const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
   if (err != cudaSuccess) return err;
   flash_fwd_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, N, M, scale_log2);
@@ -757,7 +757,7 @@ cudaError_t launch_f32(const void* const* parts, void* o, float* lse, int B, int
       !encode_map(&m.vt_lo, parts[kVtLo], B, D, mp, box_t, D, 4)) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, T::kSmemBytes);
+  static const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, T::kSmemBytes);  // once per kernel
   if (err != cudaSuccess) return err;
   const dim3 grid((N + T::kRowsQ - 1) / T::kRowsQ, B);
   flash_fwd_f32_kernel<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(m, static_cast<float*>(o), lse, N, M,

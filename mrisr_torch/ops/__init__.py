@@ -28,3 +28,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _counted().items()}
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` to the counts: a replayed CUDA graph launches the kernels its capture recorded."""
+    fns = _counted()
+    for name, n in delta.items():
+        fns[name].launches += n

@@ -9,16 +9,20 @@ The port names its submodules after the Flax auto-names (``conv_in``,
 * GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``.
 
 Every leaf is used once; a leaf with no parameter, or a parameter with no
-leaf, raises.  The tree holds numpy arrays: reading a ``.msgpack`` checkpoint
-is left to the caller, so this package never imports flax.
+leaf, raises.  The tree holds numpy arrays; ``load_flax_checkpoint`` reads
+one from a Flax ``.msgpack`` checkpoint with the port's own reader
+(``utils/flax_msgpack.py``), so this package never imports flax.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
+
+from mrisr_torch.utils.flax_msgpack import read_msgpack
 
 
 def _target(mod: nn.Module, key: str, arr: np.ndarray, path: str) -> tuple[str, np.ndarray]:
@@ -70,3 +74,11 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
     missing = sorted(name for name, _ in module.named_parameters() if name not in used)
     if missing:
         raise KeyError(f"parameters with no Flax leaf: {missing}")
+
+
+def load_flax_checkpoint(module: nn.Module, path: str | Path) -> dict:
+    """Fill ``module`` from the EMA parameters of a Flax msgpack checkpoint (the weights a trained run
+    serves).  Returns the whole checkpoint tree (``params``, ``ema``, ``opt_state``, ``step``)."""
+    tree = read_msgpack(path)
+    load_flax_params(module, tree["ema"])
+    return tree

@@ -132,5 +132,16 @@ def test_ddim_sample_matches_with_integer_t():
                                  jax.random.PRNGKey(0), num_steps=10)
     got = t_sampler.ddim_sample(resdiff_schedule(1000), eps_t, torch.from_numpy(x_T), num_steps=10)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        t_sampler.sr3_ancestral_sample(resdiff_schedule(1000), eps_t, torch.from_numpy(x_T), num_steps=None)
+    # num_steps=None: the full-length ancestral chain (1000 steps), fed the
+    # reference's own per-step noise (its key split once a step).
+    key = jax.random.PRNGKey(1)
+
+    def split(k, _):
+        k, sub = jax.random.split(k)
+        return k, jax.random.normal(sub, x_T.shape, jnp.float32)
+
+    noise = np.array(jax.lax.scan(split, key, None, length=1000)[1])
+    want = j_sampler.sr3_ancestral_sample(j_resdiff_schedule(1000), eps_j, jnp.asarray(x_T), key, num_steps=None)
+    got = t_sampler.sr3_ancestral_sample(resdiff_schedule(1000), eps_t, torch.from_numpy(x_T), num_steps=None,
+                                         noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
