@@ -18,8 +18,8 @@ and a synchronize, with the CUDA-event time of the same span beside it.
 
 Prints one JSON line: ``metric``, ``value`` (slices/s per GPU: slices served
 over the summed wall times), ``unit``, ``per_rep_blocked_ms``,
-``per_rep_stdev_ms``, ``per_rep_event_ms``, the kernels' launches a
-repetition, and ``device`` / ``power_limit`` from nvidia-smi.
+``per_rep_stdev_ms``, ``per_rep_event_ms``, and ``device`` /
+``power_limit`` from nvidia-smi.
 ``--device cpu`` runs a tiny configuration of the plain PyTorch path (a
 smoke test of the entry point; its numbers are no device's).
 """
@@ -70,7 +70,6 @@ def main(argv=None) -> int:
     from mrisr_torch.diffusion.schedules import resdiff_schedule
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.models.simple_cnn import SimpleCNN
-    from mrisr_torch.ops import launch_counts, reset_launch_counts
     from mrisr_torch.pipelines.resdiff import ResDiffPipeline
 
     device = resolve_device(args.device)
@@ -106,11 +105,10 @@ def main(argv=None) -> int:
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("the warm-up chains gave non-finite output")
 
-    per_rep_ms, per_rep_event_ms, launches = [], [], []
+    per_rep_ms, per_rep_event_ms = [], []
     for rep in range(args.repeats):
         lr, gen = fresh(rep)
         sync()
-        reset_launch_counts()
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -122,7 +120,6 @@ def main(argv=None) -> int:
         per_rep_ms.append((time.perf_counter() - t0) * 1e3)
         if cuda:
             per_rep_event_ms.append(start.elapsed_time(end))
-        launches.append(launch_counts())
 
     value = args.batch * G * args.repeats / (sum(per_rep_ms) / 1e3)
     name, limit = nvidia_smi() if cuda else ("cpu", None)
@@ -137,7 +134,6 @@ def main(argv=None) -> int:
         "per_rep_blocked_ms": per_rep_ms,
         "per_rep_stdev_ms": float(np.std(per_rep_ms)),
         "per_rep_event_ms": per_rep_event_ms or None,
-        "launches_per_rep": launches[-1],
         "cuda_graph": pipe.cuda_graph,
         "device": name,
         "power_limit": limit,

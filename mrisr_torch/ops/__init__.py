@@ -27,11 +27,9 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
+    """Launches made through each kernel's wrapper (recording one into a CUDA graph counts as one).
+
+    Replaying a captured graph calls no wrapper, so it adds nothing here;
+    the kernels a replay ran are read from a trace of it.
+    """
     return {name: fn.launches for name, fn in _counted().items()}
-
-
-def add_launch_counts(delta: dict[str, int]) -> None:
-    """Add ``delta`` to the counts: a replayed CUDA graph launches the kernels its capture recorded."""
-    fns = _counted()
-    for name, n in delta.items():
-        fns[name].launches += n

@@ -12,7 +12,9 @@ every DDIM step and ``cnn_sr + residual``.  The LR and the starting noise
 are copied into the graph's static inputs before each replay; the noise is
 still drawn from the caller's generator outside the graph, so a graphed and
 an eager chain from the same generator give the same result.  A capture or
-replay that fails raises.  ``cuda_graph=False``, and every CPU pipeline, run
+replay that fails raises.  The kernels' wrappers count the launches they
+record while the graph is captured; a replay calls no wrapper and counts
+nothing.  ``cuda_graph=False``, and every CPU pipeline, run
 the chain eagerly; so does the full-length ancestral chain
 (``num_steps=None``), whose per-step noise comes from the generator.
 """
@@ -27,20 +29,18 @@ from mrisr_torch.device import resolve_device
 from mrisr_torch.diffusion.schedules import Schedule
 from mrisr_torch.models.resdiff_unet import ResDiffUNet
 from mrisr_torch.models.simple_cnn import SimpleCNN
-from mrisr_torch.ops import add_launch_counts, launch_counts
 from mrisr_torch.pipelines.sampler import sr3_ancestral_sample
 
 
 @dataclass
 class ChainGraph:
-    """A captured chain: its static input buffers, its static output, and the kernel launches that
-    one replay makes (recorded at capture)."""
+    """A captured chain: its static input buffers and its static output.  The graph keeps its definition
+    (``keep_graph``), so a caller can read its nodes."""
 
     graph: torch.cuda.CUDAGraph
     lr: torch.Tensor
     x_T: torch.Tensor
     out: torch.Tensor
-    launches: dict[str, int]
 
 
 class ResDiffPipeline:
@@ -120,15 +120,11 @@ class ResDiffPipeline:
         with torch.cuda.stream(side):
             self._chain(static_lr, static_x, num_steps, spacing)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph):
             out = self._chain(static_lr, static_x, num_steps, spacing)
-        # The wrappers counted the launches they recorded; nothing ran yet.
-        # Every replay launches them: it adds them to the counts instead.
-        recorded = {k: n - before[k] for k, n in launch_counts().items()}
-        add_launch_counts({k: -n for k, n in recorded.items()})
-        return ChainGraph(graph, static_lr, static_x, out, recorded)
+        graph.instantiate()
+        return ChainGraph(graph, static_lr, static_x, out)
 
     def _replay(self, lr: torch.Tensor, x_T: torch.Tensor, num_steps: int, spacing: str) -> torch.Tensor:
         key = (tuple(lr.shape), lr.dtype, num_steps, spacing)
@@ -138,7 +134,6 @@ class ResDiffPipeline:
         chain.lr.copy_(lr)
         chain.x_T.copy_(x_T)
         chain.graph.replay()
-        add_launch_counts(chain.launches)
         return chain.out.clone()
 
     @torch.no_grad()

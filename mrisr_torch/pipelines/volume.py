@@ -121,8 +121,9 @@ def super_resolve_volume(
     The slices reach the pipeline in the dtype of most of its UNet's
     parameters (bf16 slices for a bf16 pipeline).  ``chain_group=G > 1``
     sends G batches a call through ``pipeline.super_resolve_group``; the
-    list of batch starts is padded to a multiple of G by repeating the last
-    start (the repeated chain's result is dropped).
+    last call takes the batches that are left, fewer than G when G does not
+    divide their number (each chain's CUDA graph is keyed on one batch's
+    shape, so a short group costs no new capture).
     """
     img = to_ras(read_nifti(nifti_path))
     vol = img.data
@@ -148,20 +149,17 @@ def super_resolve_volume(
 
     starts = list(range(0, -(-n // batch_size) * batch_size, batch_size))
     group = max(1, chain_group)
-    padded = starts + [starts[-1]] * (-len(starts) % group)
-    outs: dict[int, np.ndarray] = {}
-    for gi in range(0, len(padded), group):
-        grp = padded[gi : gi + group]
+    outs: list[np.ndarray] = []
+    for gi in range(0, len(starts), group):
+        grp = starts[gi : gi + group]
         stack = torch.from_numpy(np.stack([prep_batch(s) for s in grp])).to(device=device, dtype=dtype)
         gens = [batch_generator(device, seed, s) for s in grp]
         if group > 1:
             sr = pipeline.super_resolve_group(stack, gens, num_steps=num_steps)
         else:
             sr = pipeline.super_resolve(stack[0], gens[0], num_steps=num_steps)[None]
-        host = _crop_on_device(sr, shapes[grp[0]], resolution).float().cpu().numpy()
-        for g, s in enumerate(grp):
-            outs.setdefault(s, host[g])
-    sr_all = np.concatenate([outs[s] for s in starts])[:n]
+        outs.extend(_crop_on_device(sr, shapes[grp[0]], resolution).float().cpu().numpy())
+    sr_all = np.concatenate(outs)[:n]
 
     vol = restack_slices(sr_all, shapes, axis)
     result = NiftiImage(data=vol.astype(np.float32), affine=img.affine, header=img.header)
