@@ -48,25 +48,38 @@ result.  Each phase prints JSON lines:
    each mode;
 7. ``ddpm``: one full-length (1000-step) ancestral chain at bs 8, bf16,
    fast profile, run eagerly;
-8. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
+8. ``latent``: the latent SD1.5 family at SD1.5's widths (random weights from
+   fixed seeds, 77x768 context, bf16, 20 Res-SRDiff steps) through
+   ``LatentSRPipeline.super_resolve``: ControlNet mode at 512^2 (bs 8) and
+   1024^2 (bs 2), each graphed and eager (graph = eager bitwise, also from one
+   generator; wall and CUDA-event ms, slices/s, peak memory; one traced chain
+   of each mode, the replay's launches from the graph's kernel nodes, held to
+   the counts the modules give: B3 1350 at both sizes, B1 0 at 512^2 and 140
+   at 1024^2); one graphed adapter-mode chain at 512^2 (B3 950); one fp32
+   ControlNet+UNet evaluation at 1024^2, bs 1, against the CPU's plain path
+   (rms error within 1e-4 of rms(ref)); B3 at every head shape of the 512^2
+   chain (collected from the modules while the eager chain runs) and B1 at
+   the SD route (64 x 16384^2, D=40 padded to 64), both dtypes, against their
+   plain versions, timed beside their bounds and one library call;
+9. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
    against the plain path on the CPU, and the same for the reference's
    parity-harness UNet (128^2, inner 16, 8 norm groups), whose 64^2
    cross-attention has heads of D=16 (padded to 32);
-9. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
+10. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
    EMA 0.999) through ``make_resdiff_train_step``: 3 in fp32, 3 with the bf16
    policy, 1 with bf16 and remat, each with its launch counts, loss,
    parameter and EMA movement, ms and peak memory; then one traced step of
    each policy (``train_profile``, bf16 and float32);
-10. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
+11. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
    dropout 0, kernels on) against the CPU plain path, per parameter; and
    the same for the parity-harness UNet;
-11. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles) in
-   a subprocess, its JSON line echoed.
+12. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
+   ``--pipeline latent``) in a subprocess, its JSON line echoed.
 
-Each main path (chain, checkpoint, volume, ddpm, train) is driven with the
+Each main path (chain, checkpoint, volume, ddpm, latent, train) is driven with the
 kernels' launch counts set to 0 just before it and read just after.  A
 replayed CUDA graph calls no wrapper: a graphed path (chain, checkpoint,
-volume) is traced, its wrappers' counts must stay 0, and its launches are
+volume, latent) is traced, its wrappers' counts must stay 0, and its launches are
 the captured graph's kernel nodes times the graph launches in the trace,
 held equal to what the path must launch (``replayed``).
 Then the kernels summary line, the nvidia-smi line, and last the result line.
@@ -380,10 +393,10 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
         # The kernel alone (device time) and the wrapper's host time per call:
         # where ms is near host_us and well above device_ms, the wrapper sets the time.
         rec["device_ms"] = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale), "flash_fwd_")
-        # fp32 makes its operands first (some 20 launches a call): few calls, so the launch queue never
-        # fills and the enqueue is not held back by the device.
+        # fp32 makes its operands first (some 20 launches a call), and a padded head adds its copies: few
+        # calls, so the launch queue never fills and the enqueue is not held back by the device.
         rec["host_us"] = host_us(torch, lambda: fa.flash_attention_fwd(q, k, v, scale),
-                                 iters=200 if dtype == torch.bfloat16 else 20)
+                                 iters=200 if dtype == torch.bfloat16 and d == fa.kernel_head_dim(d) else 20)
         rec["plain_ms"] = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, scale), max_iters=10)
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]  # [B, 1 head, N, D]: fused backends take 4-D
         run_library = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
@@ -490,7 +503,11 @@ def check_flash_autograd(torch):
         raise AssertionError("gradients through flash_attention differ from flash_attention_bwd")
 
 
-def check_gn(torch, F, dtype, case, shape, groups, timed, backward=False):
+def check_gn(torch, F, dtype, case, shape, groups, timed, backward=False, eps=1e-5, brief=False):
+    """B3 against its plain version at ``shape``; when ``timed``, its time beside its bound (x read once,
+    y written once; ``reread_bound_ms`` with x read twice where the plan keeps no slice in shared memory),
+    the plain version's and one library call's (``F.silu(F.group_norm)``).  ``brief``: each timed over 50
+    ms (not 200), 50 host calls (not 200), no device times from the profiler."""
     from mrisr_torch.ops import groupnorm as gn
 
     gen = torch.Generator(device="cuda").manual_seed(sum(shape) + groups)
@@ -498,8 +515,8 @@ def check_gn(torch, F, dtype, case, shape, groups, timed, backward=False):
     x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
     w = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
     bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
-    y = gn.group_norm_silu(x, w, bias, groups, 1e-5)
-    ref = gn.group_norm_silu_plain(x, w, bias, groups, 1e-5)
+    y = gn.group_norm_silu(x, w, bias, groups, eps)
+    ref = gn.group_norm_silu_plain(x, w, bias, groups, eps)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
     tol = GN_TOL[name]
@@ -507,25 +524,30 @@ def check_gn(torch, F, dtype, case, shape, groups, timed, backward=False):
     limit = tol["atol"] + tol["rtol"] * ref.float().abs()
     ok = bool((err <= limit).all())
     rec = {"phase": "kernel", "kernel": "group_norm_silu", "case": case, "dtype": name,
-           "shape": list(shape), "groups": groups, "max_abs_err": float(err.max()),
+           "shape": list(shape), "groups": groups, "eps": eps, "max_abs_err": float(err.max()),
            "err_over_limit": float((err / limit).max()),
            "max_rel_err": float(err.max() / ref.float().abs().max()), "tolerance": tol, "ok": ok}
     if timed:
         numel = x.numel()
-        rec["bound_ms"], rec["bound_by"] = bound(
-            2 * numel * x.element_size() + 2 * c * w.element_size(), 10.0 * numel, PEAK_FP32_FLOPS)
-        run = lambda: gn.group_norm_silu(x, w, bias, groups, 1e-5)  # noqa: E731
-        run_library = lambda: F.silu(F.group_norm(x, groups, w, bias, 1e-5))  # noqa: E731
-        rec["plan"] = gn.gn_plan(tuple(shape), groups, x.element_size())._asdict()
-        rec["ms"] = cuda_ms(torch, run)
-        rec["device_ms"] = device_ms(torch, run, None)
-        rec["host_us"] = host_us(torch, run)
-        rec["plain_ms"] = cuda_ms(torch, lambda: gn.group_norm_silu_plain(x, w, bias, groups, 1e-5))
-        rec["library_ms"] = cuda_ms(torch, run_library)
-        rec["library_device_ms"] = device_ms(torch, run_library, None)
+        plan = gn.gn_plan(tuple(shape), groups, x.element_size())
+        n_bytes = 2 * numel * x.element_size() + 2 * c * w.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 10.0 * numel, PEAK_FP32_FLOPS)
+        if not plan.resident:
+            rec["reread_bound_ms"] = bound(n_bytes + numel * x.element_size(), 10.0 * numel, PEAK_FP32_FLOPS)[0]
+        run = lambda: gn.group_norm_silu(x, w, bias, groups, eps)  # noqa: E731
+        run_library = lambda: F.silu(F.group_norm(x, groups, w, bias, eps))  # noqa: E731
+        rec["plan"] = plan._asdict()
+        min_ms = 50.0 if brief else 200.0
+        rec["ms"] = cuda_ms(torch, run, min_ms)
+        rec["host_us"] = host_us(torch, run, iters=50 if brief else 200)
+        rec["plain_ms"] = cuda_ms(torch, lambda: gn.group_norm_silu_plain(x, w, bias, groups, eps), min_ms)
+        rec["library_ms"] = cuda_ms(torch, run_library, min_ms)
+        if not brief:
+            rec["device_ms"] = device_ms(torch, run, None)
+            rec["library_device_ms"] = device_ms(torch, run_library, None)
     if backward:  # the backward has no kernel (nor has the reference's): the exact composition, timed alone
         leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
-        out = gn.group_norm_silu(*leaves, groups, 1e-5)
+        out = gn.group_norm_silu(*leaves, groups, eps)
         rec["backward_composition_ms"] = cuda_ms(
             torch, lambda: torch.autograd.grad(out, leaves, y, retain_graph=True), max_iters=20)
     emit(rec)
@@ -706,33 +728,59 @@ def graph_kernel_nodes(graph):
 # A replay's kernel records that the tracer may miss (one graphed chain's trace lacked 5 of its 1450 B3
 # records, another 2 of 1450 and 1 of 100 B1 with the tracer warmed up); eager traces have held them all.
 TRACE_MISS = 0.01
+# Traces taken of one run at most.  Now and then the tracer drops a whole block of records: one traced
+# serial volume (5 replays, 108455 device events) held 5690 events fewer, 381 of its 7250 B3 and 26 of its
+# 500 B1 records, where a trace of the same volume on the same card held every one.  A trace that falls
+# short by more than TRACE_MISS is taken again, and each trace's shortfall is reported.  A kernel that does
+# not run falls short in every trace, and more records than launches fail at once.
+TRACE_TRIES = 3
 
 
-def replayed(torch, run, pipe, chains, what, chain_ms=None):
+def traced(torch, run, chain_ms, expected):
+    """``profile_chain`` of ``run()``, taken again (``TRACE_TRIES`` traces at most) while the trace holds fewer
+    of some kernel's records than ``expected(prof)`` gives, less ``TRACE_MISS`` of them.  -> (result, profile);
+    the profile's ``trace_shortfall`` lists each trace's missing records by kernel."""
+    shortfall = []
+    for _ in range(TRACE_TRIES):
+        out, prof = profile_chain(torch, run, chain_ms)
+        want = expected(prof)
+        seen = prof["kernel_events"]
+        shortfall.append({k: n - seen[k] for k, n in want.items()})
+        if any(seen[k] > n for k, n in want.items()) or all(seen[k] >= n * (1 - TRACE_MISS) for k, n in want.items()):
+            break
+    prof["trace_shortfall"] = shortfall
+    return out, prof
+
+
+def replayed(torch, run, pipe, chains, what, chain_ms=None, expect=None):
     """A graphed main path: ``run()`` replays ``pipe``'s one captured chain ``chains`` times.  It is traced
     (``profile_chain``) with the wrappers' counts set to 0 just before it and read just after; a replay
     calls no wrapper, so they must stay 0.  Its launches are the graph's kernel nodes (which must be one
-    chain's, ``chain_expect``) times the graph launches in the trace (which must be ``chains``); the
-    kernels the trace shows must be those launches, less at most ``TRACE_MISS`` of them.
-    -> (result, launches, profile)."""
+    chain's, ``expect``; by default ``chain_expect``) times the graph launches in the trace (which must be
+    ``chains``); the kernels the trace shows must be those launches, less at most ``TRACE_MISS`` of them
+    (``traced``).  -> (result, launches, profile)."""
     from mrisr_torch.ops import launch_counts, reset_launch_counts
+
+    def graph_launches(prof):
+        if len(pipe.graphs) != 1:
+            raise AssertionError(f"{what}: {len(pipe.graphs)} captured chains, expected 1")
+        nodes = graph_kernel_nodes(next(iter(pipe.graphs.values())).graph)
+        return {k: n * prof["graph_launches"] for k, n in nodes.items()}
 
     torch.cuda.synchronize()
     reset_launch_counts()
-    out, prof = profile_chain(torch, run, chain_ms)
+    out, prof = traced(torch, run, chain_ms, graph_launches)
     wrapped = launch_counts()
-    if len(pipe.graphs) != 1:
-        raise AssertionError(f"{what}: {len(pipe.graphs)} captured chains, expected 1")
     nodes = graph_kernel_nodes(next(iter(pipe.graphs.values())).graph)
-    launches = {k: n * prof["graph_launches"] for k, n in nodes.items()}
+    launches = graph_launches(prof)
     seen = prof["kernel_events"]
     prof.update(graph_kernel_nodes=nodes, trace_missed={k: launches[k] - seen[k] for k in launches})
-    if (nodes != chain_expect(STEPS) or prof["graph_launches"] != chains or any(wrapped.values())
+    if (nodes != (expect or chain_expect(STEPS)) or prof["graph_launches"] != chains or any(wrapped.values())
             or not prof["device_events"]
             or any(not launches[k] * (1 - TRACE_MISS) <= seen[k] <= launches[k] for k in launches)):
         raise AssertionError(f"{what}: graph kernel nodes {nodes}, {prof['graph_launches']} graph launches "
                              f"(expected {chains}), kernels in the trace {seen} ({prof['device_events']} device "
-                             f"events), wrapper counts {wrapped}")
+                             f"events), wrapper counts {wrapped}, each trace's shortfall {prof['trace_shortfall']}")
     return out, launches, prof
 
 
@@ -833,7 +881,8 @@ def phase_chain(torch):
         add_counts(totals, counts)
         # The eager chain traced the same way: the trace holds what the wrappers counted (as for a replay, the
         # tracer may miss up to TRACE_MISS of the records).
-        _, eager_prof = profile_chain(torch, lambda: eager.super_resolve(lr, x_T=x_T, num_steps=STEPS), min(eager_ms))
+        _, eager_prof = traced(torch, lambda: eager.super_resolve(lr, x_T=x_T, num_steps=STEPS), min(eager_ms),
+                               lambda _: eager_counts)
         outs[profile] = out.float()
         diff_gen = float((from_gen[0].float() - from_gen[1].float()).abs().max())
         rec = {"phase": "chain", "profile": profile, "ca_kv_pool": kv_pool, "batch": BATCH, "size": SIZE,
@@ -1008,6 +1057,7 @@ def phase_volume(torch):
           "serial_launches": launches["serial"],
           "launches_from": "the graph's kernel nodes times the graph launches in a trace of one volume each",
           "trace_missed": {mode: p["trace_missed"] for mode, p in profs.items()},
+          "trace_shortfall": {mode: p["trace_shortfall"] for mode, p in profs.items()},
           "grouped_s_per_volume": timed["grouped"], "serial_s_per_volume": timed["serial"],
           "grouped_slices_per_s": [VOLUME_SHAPE[2] / t for t in timed["grouped"]],
           "serial_slices_per_s": [VOLUME_SHAPE[2] / t for t in timed["serial"]], "written": "uncompressed .nii",
@@ -1045,11 +1095,12 @@ def phase_ddpm(torch):
     return counts
 
 
-BENCH_RUNS = (["--fast", "8"], ["--fast", "0"])
+BENCH_RUNS = (["--fast", "8"], ["--fast", "0"], ["--pipeline", "latent"])
 
 
 def phase_bench():
-    """``python3 -m mrisr_torch.bench`` in a subprocess per profile; its JSON line echoed."""
+    """``python3 -m mrisr_torch.bench`` in a subprocess per profile (and the latent chain); its JSON line
+    echoed."""
     for extra in BENCH_RUNS:
         proc = subprocess.run([sys.executable, "-m", "mrisr_torch.bench", *extra], capture_output=True, text=True,
                               timeout=600)
@@ -1236,6 +1287,244 @@ def check_gradients(torch, unet_kwargs, seed, expect):
         raise AssertionError(f"gradients on the card disagree with the CPU plain path: {rec}")
 
 
+LATENT_STEPS = 20
+# (case, batch, condition size): the bench's 512^2 chain (64^2 latents, every attention dense) and a 1024^2
+# chain (128^2 latents: the level-0 self-attentions see 16384 keys and go through B1, heads of D=40).
+LATENT_CHAINS = (("512", 8, 512), ("1024", 2, 1024))
+LATENT_REPS = 2  # timed calls of each latent chain, graph and eager
+# What the module structure gives for a 20-step chain: B3 65 a ControlNet+UNet step (UNet 22 ResnetBlock2D
+# x 2 + conv_norm_out, ControlNet 10 x 2) and 50 in the VAE (encoder 10 x 2 + 1, decoder 14 x 2 + 1); 45 a
+# step in adapter mode; B1 7 a step at 128^2 latents (UNet 2 + 3, ControlNet 2), none at 64^2.
+LATENT_STATED = {("controlnet", 512): (1350, 0), ("controlnet", 1024): (1350, 140), ("adapter", 512): (950, 0)}
+# One fp32 ControlNet+UNet evaluation at 1024^2, bs 1, card (TF32 off) against the CPU's plain path.
+LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 1024, 1e-4
+# B1 at the SD route: 8 images x 8 heads at 128^2 latents, D = 40 (the wrapper pads it to 64).
+FLASH_SD = ("sd_route", 64, 16384, 16384, 40)
+
+
+def latent_modules(torch, dtype, seed=10):
+    """SDUNet, ControlNet and AutoencoderKL at SD1.5's widths on the card, random weights from ``seed``, cast to
+    ``dtype``.  The ControlNet's zero-initialised convs get random weights too, so it carries signal as a
+    trained one does."""
+    from torch import nn
+
+    from mrisr_torch.models.controlnet import ControlNet
+    from mrisr_torch.models.sd_unet import SDUNet
+    from mrisr_torch.models.vae import AutoencoderKL
+
+    torch.manual_seed(seed)
+    unet = SDUNet()
+    torch.manual_seed(seed + 1)
+    cn = ControlNet()
+    for name, m in cn.named_modules():
+        if isinstance(m, nn.Conv2d) and (name.startswith("controlnet_") or name.endswith("cond_embedding.conv_out")):
+            m.reset_parameters()
+    torch.manual_seed(seed + 2)
+    vae = AutoencoderKL()
+    return unet.to(dtype), cn.to(dtype), vae.to(dtype)
+
+
+def latent_expect(pipe, size, steps):
+    """The launches of one chain, counted from the modules: two B3 heads a ResnetBlock2D and one a
+    ``conv_norm_out`` (UNet and ControlNet every step, VAE once); one B1 a Transformer2D whose self-attention
+    sees more than 4096 keys (a block's level from its name: ``down_blocks_i`` i, ``up_blocks_j`` n-1-j, the
+    mid block n-1)."""
+    from mrisr_torch.models.sd_layers import DENSE_MAX_KEYS, ResnetBlock2D, Transformer2D
+
+    def heads(m):
+        return 2 * sum(isinstance(x, ResnetBlock2D) for x in m.modules())
+
+    def flash_sites(m):
+        n = len(m.block_out_channels)
+        count = 0
+        for name, x in m.named_modules():
+            if isinstance(x, Transformer2D):
+                top = name.split(".")[0]
+                level = (int(top.rsplit("_", 1)[1]) if top.startswith("down_blocks_")
+                         else n - 1 - int(top.rsplit("_", 1)[1]) if top.startswith("up_blocks_") else n - 1)
+                count += ((size // 8) >> level) ** 2 > DENSE_MAX_KEYS
+        return count
+
+    towers = [pipe.unet] + ([] if pipe.controlnet is None else [pipe.controlnet])
+    per_step = heads(pipe.unet) + 1 + (0 if pipe.controlnet is None else heads(pipe.controlnet))
+    vae = heads(pipe.vae.encoder) + 1 + heads(pipe.vae.decoder) + 1
+    return {"flash_attention_fwd": steps * sum(flash_sites(m) for m in towers), "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "group_norm_silu": steps * per_step + vae}
+
+
+def recording_heads(torch, run):
+    """``run()`` with every B3 call of the SD modules recorded: (result, {(shape, groups, eps): calls})."""
+    from mrisr_torch.models import sd_layers
+
+    seen, launch = {}, sd_layers.group_norm_silu
+
+    def record(x, weight, bias, groups, eps):
+        key = (tuple(x.shape), groups, eps)
+        seen[key] = seen.get(key, 0) + 1
+        return launch(x, weight, bias, groups, eps)
+
+    sd_layers.group_norm_silu = record
+    try:
+        out = run()
+    finally:
+        sd_layers.group_norm_silu = launch
+    return out, seen
+
+
+def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=False, eager_too=True):
+    """One latent chain configuration, graphed (and eagerly): launch counts, graph = eager bitwise from one
+    generator, wall and CUDA-event ms, peak memory, one traced chain of each mode.  -> (launches of the traced
+    replay, B3 head shapes of the eager chain)."""
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.pipelines.latent import ChainNoise, LatentSRPipeline
+
+    sched = sd15_schedule()
+    kw = dict(adapter=side) if adapter else {}
+    cn = None if adapter else side
+    pipe = LatentSRPipeline(unet, cn, vae, sched, prompt, device="cuda", **kw)
+    mode = pipe.mode
+    expect = latent_expect(pipe, size, LATENT_STEPS)
+    stated = LATENT_STATED.get((mode, size))
+    if stated and (expect["group_norm_silu"], expect["flash_attention_fwd"]) != stated:
+        raise AssertionError(f"latent {mode} {size}: the modules give {expect}, stated {stated}")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lr = (torch.rand((batch, size, size, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    noise = ChainNoise.draw(pipe.latent_shape(lr), LATENT_STEPS, gen, "cuda")
+    run = lambda: pipe.super_resolve(lr, num_inference_steps=LATENT_STEPS, noise=noise)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, first_counts = counted(torch, run)  # eager warm-up, capture (counted), one replay
+    first_ms = (time.perf_counter() - t0) * 1e3
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
+    what = f"latent {mode} {size}"
+    if first_counts != {k: 2 * n for k, n in expect.items()} or len(pipe.graphs) != 1:
+        raise AssertionError(f"{what}: first call's launch counts {first_counts}, expected twice {expect}")
+    if tuple(out.shape) != (batch, size, size, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: bad output {tuple(out.shape)}")
+    graph_ms, graph_event_ms = timed_chains(torch, run, LATENT_REPS)
+    again, counts, graph_prof = replayed(torch, run, pipe, 1, f"{what} graph replay", min(graph_ms), expect)
+    rec = {"phase": "latent", "mode": mode, "case": case, "batch": batch, "size": size, "latent": size // 8,
+           "steps": LATENT_STEPS, "dtype": "bfloat16", "expected_launches": expect, "launches": counts,
+           "launches_from": "the graph's kernel nodes times the graph launches in a trace of one replay",
+           "first_call_launches": first_counts, "first_call_ms": first_ms, "graph_chain_ms": graph_ms,
+           "graph_event_ms": graph_event_ms, "chain_ms": min(graph_ms),
+           "slices_per_s": batch / (min(graph_ms) / 1e3), "graph_peak_gib": graph_peak,
+           "repeat_max_abs_diff": float((again.float() - out.float()).abs().max()),
+           "out_abs_max": float(out.float().abs().max())}
+    heads = None
+    bad = rec["repeat_max_abs_diff"] != 0.0
+    if eager_too:
+        eager = LatentSRPipeline(unet, cn, vae, sched, prompt, device="cuda", cuda_graph=False, **kw)
+        erun = lambda: eager.super_resolve(lr, num_inference_steps=LATENT_STEPS, noise=noise)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (eager_out, heads), eager_counts = counted(torch, lambda: recording_heads(torch, erun))
+        eager_peak = torch.cuda.max_memory_allocated() / 2**30
+        from_gen = [p.super_resolve(lr, torch.Generator(device="cuda").manual_seed(5), LATENT_STEPS)
+                    for p in (pipe, eager)]
+        eager_ms, eager_event_ms = timed_chains(torch, erun, LATENT_REPS)
+        _, eager_prof = traced(torch, erun, min(eager_ms), lambda _: eager_counts)
+        rec.update(eager_launches=eager_counts, eager_trace_launches=eager_prof["kernel_events"],
+                   eager_chain_ms=eager_ms, eager_event_ms=eager_event_ms, eager_peak_gib=eager_peak,
+                   eager_slices_per_s=batch / (min(eager_ms) / 1e3),
+                   graph_vs_eager_max_abs_diff=float((again.float() - eager_out.float()).abs().max()),
+                   graph_vs_eager_same_generator_max_abs_diff=float((from_gen[0].float() - from_gen[1].float())
+                                                                    .abs().max()),
+                   b3_head_shapes=len(heads))
+        bad = (bad or eager_counts != expect or rec["graph_vs_eager_max_abs_diff"] != 0.0
+               or rec["graph_vs_eager_same_generator_max_abs_diff"] != 0.0
+               or any(not n * (1 - TRACE_MISS) <= eager_prof["kernel_events"][k] <= n for k, n in eager_counts.items()))
+    emit(rec)
+    emit({"phase": "latent_profile", "mode": mode, "case": case, "graph": "replay", "chain_ms": min(graph_ms),
+          **graph_prof})
+    if eager_too:
+        emit({"phase": "latent_profile", "mode": mode, "case": case, "graph": "eager", "chain_ms": min(eager_ms),
+              **eager_prof})
+    if bad:
+        raise AssertionError(f"{what}: graph and eager disagree, or launch counts differ from {expect}: {rec}")
+    return counts, heads
+
+
+def check_latent_fp32(torch):
+    """One fp32 ControlNet+UNet evaluation at 1024^2 (128^2 latents, bs 1; B1 at its D=40 site), the card's
+    kernels (TF32 off) against the CPU's plain path: max abs error over max |ref|, rms error over rms(ref)."""
+    from mrisr_torch.models.controlnet import ControlNet
+    from mrisr_torch.models.sd_unet import SDUNet
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+
+    unet, cn, _ = latent_modules(torch, torch.float32, seed=30)
+    cpu_unet, cpu_cn = SDUNet(device="cpu"), ControlNet(device="cpu")
+    cpu_unet.load_state_dict({k: v.cpu() for k, v in unet.state_dict().items()})
+    cpu_cn.load_state_dict({k: v.cpu() for k, v in cn.state_dict().items()})
+    lat = LATENT_FP32_SIZE // 8
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn((1, 4, lat, lat), generator=gen)
+    cond = torch.rand((1, 3, LATENT_FP32_SIZE, LATENT_FP32_SIZE), generator=gen) * 2 - 1
+    ctx = torch.randn((1, 77, 768), generator=gen)
+    t = torch.tensor([500])
+
+    def evaluate(u, c, dev):
+        xs, conds, ctxs, ts = (a.to(dev) for a in (x, cond, ctx, t))
+        down, mid = c(xs, ts, ctxs, cond_image=conds)
+        return u(xs, ts, ctxs, down_block_additional_residuals=down, mid_block_additional_residual=mid)
+
+    with torch.no_grad():
+        reset_launch_counts()
+        got = evaluate(unet, cn, "cuda").cpu()
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        ref = evaluate(cpu_unet, cpu_cn, "cpu")
+        cpu_s = time.perf_counter() - t0
+    err = (got - ref).abs()
+    rms_rel = float(err.square().mean().sqrt() / ref.square().mean().sqrt())
+    expect = {"flash_attention_fwd": 7, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+              "group_norm_silu": 65}
+    ok = rms_rel <= LATENT_FP32_RMS_REL and counts == expect and bool(torch.isfinite(got).all())
+    rec = {"phase": "latent_fp32", "size": LATENT_FP32_SIZE, "latent": lat, "dtype": "float32", "tf32": False,
+           "launches": counts, "max_abs_err": float(err.max()), "ref_abs_max": float(ref.abs().max()),
+           "max_abs_err_over_max_ref": float(err.max() / ref.abs().max()), "rms_err_over_rms_ref": rms_rel,
+           "bar_rms_rel": LATENT_FP32_RMS_REL, "cpu_eval_s": cpu_s, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"latent fp32 evaluation on the card disagrees with the CPU (launches {expect}): {rec}")
+
+
+def phase_latent(torch):
+    """The latent SD1.5 chains: ControlNet mode at 512^2 (bs 8) and 1024^2 (bs 2), graphed and eager; an
+    adapter-mode chain at 512^2, graphed; the fp32 evaluation against the CPU; B3 at every head shape of the
+    512^2 chain and B1 at the SD route, both dtypes, against their plain versions."""
+    import torch.nn.functional as F
+
+    totals = {}
+    prompt = torch.randn((1, 77, 768), generator=torch.Generator().manual_seed(20)).to(torch.bfloat16)
+    unet, cn, vae = latent_modules(torch, torch.bfloat16)
+    heads = None
+    for case, batch, size in LATENT_CHAINS:
+        counts, seen = latent_chain(torch, unet, cn, vae, prompt, case, batch, size)
+        heads = heads or seen
+        add_counts(totals, counts)
+        torch.cuda.empty_cache()
+    del cn
+    torch.manual_seed(11)
+    from mrisr_torch.models.adapter import T2IAdapter
+
+    adapter = T2IAdapter().to(torch.bfloat16)
+    counts, _ = latent_chain(torch, unet, adapter, vae, prompt, "512", 8, 512, adapter=True, eager_too=False)
+    add_counts(totals, counts)
+    del unet, vae, adapter
+    torch.cuda.empty_cache()
+    check_latent_fp32(torch)
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for (shape, groups, eps), calls in sorted(heads.items(), key=lambda kv: -math.prod(kv[0][0])):
+            rec = check_gn(torch, F, dtype, "latent_head", shape, groups, timed=True, eps=eps, brief=True)
+            emit({"phase": "latent_head", "shape": list(shape), "groups": groups, "eps": eps,
+                  "dtype": rec["dtype"], "calls_in_512_eager_chain": calls})
+        check_flash(torch, F, dtype, *FLASH_SD, timed=True)
+    return totals
+
+
 KERNELS = [  # (name, route, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
     ("flash_attention_bwd_dq", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:228"),
@@ -1262,9 +1551,9 @@ def summary(recs, path_launches):
     return {"kernels": entries}
 
 
-PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "forward", "train", "grad", "bench")
+PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "forward", "train", "grad", "bench")
 # Paths whose launches the kernels line counts; serving paths launch no backward kernel.
-MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "train")
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "train")
 
 
 def main(argv) -> int:
@@ -1299,7 +1588,7 @@ def main(argv) -> int:
     recs = phase_kernels(torch) if "kernel" in phases else None
     path_launches = {}
     for name, run in (("chain", phase_chain), ("checkpoint", phase_checkpoint), ("volume", phase_volume),
-                      ("ddpm", phase_ddpm)):
+                      ("ddpm", phase_ddpm), ("latent", phase_latent)):
         if name in phases:
             path_launches[name] = run(torch)
     if "forward" in phases:

@@ -43,8 +43,13 @@ _FN = None
 def group_norm_silu_plain(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-5
 ) -> torch.Tensor:
-    """``F.group_norm`` in fp32, then SiLU, cast back to ``x.dtype``."""
-    y = F.group_norm(x.float(), groups, weight.float(), bias.float(), eps)
+    """GroupNorm in fp32, then SiLU, cast back to ``x.dtype``.
+
+    ``torch.group_norm`` is ``F.group_norm`` without its batch check, which
+    refuses a group of one element (whose GroupNorm is its bias: the tiny SD
+    configurations have such groups at bs 1).
+    """
+    y = torch.group_norm(x.float(), groups, weight.float(), bias.float(), eps)
     return F.silu(y).to(x.dtype)
 
 

@@ -5,6 +5,9 @@ called once per step.  ``eps_fn`` signatures:
 
 * integer-t samplers: ``eps_fn(x_t, t[B]) -> eps``;
 * SR3 samplers: ``eps_fn(x_t, gamma[B]) -> eps``.
+
+The Res-SRDiff chain (:func:`res_shift_sample`) takes its starting noise and
+its per-step noises as tensors or draws them from a generator.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from mrisr_torch.diffusion.ddim import ddim_step
 from mrisr_torch.diffusion.ddpm import p_step
+from mrisr_torch.diffusion.res_shift import shift_forward, shift_reverse_step
 from mrisr_torch.diffusion.schedules import Schedule, spaced_timesteps
 
 
@@ -96,4 +100,42 @@ def sr3_ancestral_sample(
         tb, tpb = full(t), full(tp)
         eps = eps_fn(x, sched.sqrt_alphas_cumprod[tb])
         x = ddim_step(sched, x, tb, tpb, eps, None, 0.0, clip_x0)
+    return x
+
+
+def res_shift_sample(
+    sched: Schedule,
+    eps_fn: Callable,
+    lr_anchor: torch.Tensor,
+    noise0: torch.Tensor | None = None,
+    step_noise: torch.Tensor | None = None,
+    num_steps: int = 20,
+    spacing: str = "leading",
+    prediction_type: str = "epsilon",
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Res-SRDiff reverse chain anchored on the LR latents, ``eps_fn(x_t, t[B])``.
+
+    Starts from the shifted state at the first timestep (``x_T ~ LR +
+    noise``) and steps the reverse process; ``t_prev`` is 0 (not -1) on the
+    last step, as the reference's.  ``noise0`` (``lr_anchor``'s shape) and
+    ``step_noise`` (``[num_steps, *lr_anchor.shape]``, float32) are drawn
+    from ``generator`` when not given: the start first, then the steps' in one draw.
+    """
+    shape = tuple(lr_anchor.shape)
+    if step_noise is not None and tuple(step_noise.shape) != (num_steps, *shape):
+        raise ValueError(f"step_noise must be [{num_steps}, *{shape}], got {tuple(step_noise.shape)}")
+
+    def draw(s):
+        return torch.randn(s, generator=generator, device=lr_anchor.device, dtype=torch.float32)
+
+    x0_noise = draw(shape) if noise0 is None else noise0
+    if step_noise is None:
+        step_noise = draw((num_steps, *shape))
+    pairs = [(t, max(tp, 0)) for t, tp in _pairs(spaced_timesteps(sched.num_timesteps, num_steps, spacing))]
+    full = lambda v: torch.full((shape[0],), v, dtype=torch.long, device=lr_anchor.device)  # noqa: E731
+    x = shift_forward(sched, lr_anchor, lr_anchor, full(pairs[0][0]), x0_noise)
+    for i, (t, tp) in enumerate(pairs):
+        tb, tpb = full(t), full(tp)
+        x = shift_reverse_step(sched, x, lr_anchor, tb, tpb, eps_fn(x, tb), step_noise[i], prediction_type)
     return x

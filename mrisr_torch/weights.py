@@ -6,7 +6,10 @@ The port names its submodules after the Flax auto-names (``conv_in``,
 
 * conv ``kernel`` HWIO -> ``weight`` OIHW;
 * Dense ``kernel`` [in, out] -> ``weight`` [out, in];
-* GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``.
+* GroupNorm and LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+* Embed ``embedding`` -> ``weight``;
+* a parameter of the module itself (CLIP's ``position_embedding``) keeps its
+  name and layout.
 
 Every leaf is used once; a leaf with no parameter, or a parameter with no
 leaf, raises.  The tree holds numpy arrays; ``load_flax_checkpoint`` reads
@@ -31,10 +34,14 @@ def _target(mod: nn.Module, key: str, arr: np.ndarray, path: str) -> tuple[str, 
         return "weight", arr.transpose(3, 2, 0, 1)
     if key == "kernel" and isinstance(mod, nn.Linear):
         return "weight", arr.T
-    if key == "scale" and isinstance(mod, nn.GroupNorm):
+    if key == "scale" and isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
         return "weight", arr
-    if key == "bias" and isinstance(mod, (nn.Conv2d, nn.Linear, nn.GroupNorm)):
+    if key == "bias" and isinstance(mod, (nn.Conv2d, nn.Linear, nn.GroupNorm, nn.LayerNorm)):
         return "bias", arr
+    if key == "embedding" and isinstance(mod, nn.Embedding):
+        return "weight", arr
+    if key in mod._parameters:
+        return key, arr
     raise KeyError(f"Flax leaf {path} has no counterpart in {type(mod).__name__}")
 
 

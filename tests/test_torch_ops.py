@@ -319,6 +319,29 @@ def test_chip_smoke_reads_a_profiler_window(seen, expect):
     assert got == expect if expect is None else (got[0] == expect[0] and got[1] == pytest.approx(expect[1]))
 
 
+@pytest.mark.parametrize("traces, shortfall", [
+    ([1450], [0]),
+    ([1440], [10]),  # within TRACE_MISS: kept
+    ([1000, 1450], [450, 0]),  # a dropped block: traced again
+    ([1000, 900, 1100], [450, 550, 350]),  # short in every trace: the caller's check fails
+    ([1451], [-1]),  # more records than launches: not traced again
+])
+def test_chip_smoke_retraces_a_trace_short_of_records(traces, shortfall):
+    """``traced`` takes a run's trace again, TRACE_TRIES times at most, while the trace holds fewer records
+    than expected (less TRACE_MISS of them), and reports each trace's shortfall."""
+    smoke = _chip_smoke()
+    runs = []
+
+    def profile_chain(torch, run, chain_ms=None):
+        runs.append(run())
+        return run, {"kernel_events": {"group_norm_silu": traces[len(runs) - 1]}}
+
+    smoke.profile_chain = profile_chain
+    out, prof = smoke.traced(None, lambda: "run", None, lambda prof: {"group_norm_silu": 1450})
+    assert smoke.TRACE_TRIES == 3 and len(runs) == len(traces)
+    assert prof["trace_shortfall"] == [{"group_norm_silu": n} for n in shortfall]
+
+
 def _sweep_variants():
     from mrisr_torch.tools import flash_bwd_sweep, flash_fwd_sweep
 
@@ -549,6 +572,9 @@ def test_port_imports_no_jax():
     names = {str(f.relative_to(REPO)) for f in files}
     assert len(files) > 25 and {"mrisr_torch/train/steps.py", "mrisr_torch/train/state.py",
                                 "mrisr_torch/utils/checkpoint.py", "mrisr_torch/diffusion/sr3.py"} <= names
+    latent = {f"mrisr_torch/models/{m}.py" for m in ("sd_layers", "sd_unet", "controlnet", "vae", "adapter", "lora",
+                                                     "tokenizer", "clip_text", "convert")}
+    assert latent | {"mrisr_torch/diffusion/res_shift.py", "mrisr_torch/pipelines/latent.py"} <= names
     for path in files:
         bad = _imports(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
@@ -585,3 +611,27 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
         ResDiffPipeline(cnn, unet, t_sched.resdiff_schedule(1000))
     pipe = ResDiffPipeline(cnn, unet, t_sched.resdiff_schedule(1000), device="cpu")
     assert next(pipe.unet.parameters()).device.type == "cpu" and not pipe.unet.training
+
+    # the latent family
+    from mrisr_torch.models.adapter import T2IAdapter
+    from mrisr_torch.models.clip_text import CLIPTextEncoder
+    from mrisr_torch.models.controlnet import ControlNet
+    from mrisr_torch.models.sd_unet import SDUNet
+    from mrisr_torch.models.vae import AutoencoderKL
+    from mrisr_torch.pipelines.latent import LatentSRPipeline
+
+    sd = dict(block_out_channels=(8, 16, 16, 16), heads=2, context_dim=16)
+    makers = {"unet": lambda **kw: SDUNet(**sd, **kw), "controlnet": lambda **kw: ControlNet(**sd, **kw),
+              "vae": lambda **kw: AutoencoderKL((8, 8, 16, 16), **kw),
+              "adapter": lambda **kw: T2IAdapter((8, 16, 16, 16), **kw),
+              "clip": lambda **kw: CLIPTextEncoder(100, 16, 1, 2, 32, 16, 99, **kw)}
+    for make in makers.values():
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    cpu = {name: make(device="cpu") for name, make in makers.items()}
+    assert all(next(m.parameters()).device.type == "cpu" for m in cpu.values())
+    args = (cpu["unet"], cpu["controlnet"], cpu["vae"], t_sched.sd15_schedule(), torch.zeros(1, 7, 16))
+    with pytest.raises(RuntimeError, match="is_available"):
+        LatentSRPipeline(*args)
+    latent = LatentSRPipeline(*args, adapter=cpu["adapter"], device="cpu")
+    assert latent.mode == "adapter" and not latent.cuda_graph
