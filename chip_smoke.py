@@ -49,39 +49,53 @@ result.  Each phase prints JSON lines:
 7. ``ddpm``: one full-length (1000-step) ancestral chain at bs 8, bf16,
    fast profile, run eagerly;
 8. ``latent``: the latent SD1.5 family at SD1.5's widths (random weights from
-   fixed seeds, 77x768 context, bf16, 20 Res-SRDiff steps) through
-   ``LatentSRPipeline.super_resolve``: ControlNet mode at 512^2 (bs 8) and
-   1024^2 (bs 2), each graphed and eager (graph = eager bitwise, also from one
-   generator; wall and CUDA-event ms, slices/s, peak memory; one traced chain
-   of each mode, the replay's launches from the graph's kernel nodes, held to
-   the counts the modules give: B3 1350 at both sizes, B1 0 at 512^2 and 140
-   at 1024^2); one graphed adapter-mode chain at 512^2 (B3 950); one fp32
-   ControlNet+UNet evaluation at 1024^2, bs 1, against the CPU's plain path
-   (rms error within 1e-4 of rms(ref)); B3 at every head shape of the 512^2
-   chain (collected from the modules while the eager chain runs) and B1 at
-   the SD route (64 x 16384^2, D=40 padded to 64), both dtypes, against their
-   plain versions, timed beside their bounds and one library call;
+   fixed seeds, 77x768 context, bf16 weights, 20 Res-SRDiff steps; as in the
+   reference the carry is fp32 from the shifted start, so the UNet, ControlNet
+   and decoder compute in fp32) through ``LatentSRPipeline.super_resolve``:
+   ControlNet mode at 512^2 (bs 8), graphed and eager (graph = eager bitwise,
+   also from one generator), and at 1024^2 (bs 2), graphed; wall ms (a
+   graphed chain's from its traced replay, the eager chain's from its counted
+   call), slices/s, peak memory; one traced chain of each mode, the
+   replay's launches from the graph's kernel nodes, held to the counts the
+   modules give: B3 1350 at both sizes, B1 0 at 512^2 and 140 at 1024^2; one
+   graphed adapter-mode chain at 512^2 (B3 950); one fp32 ControlNet+UNet
+   evaluation at 1024^2, bs 1, against the CPU's plain path (rms error within
+   1e-4 of rms(ref)); B3 at every head shape of the 512^2 chain (collected
+   from the modules while the eager chain runs) and B1 at the SD route (64 x
+   16384^2, D=40 padded to 64), both dtypes, against their plain versions,
+   timed beside their bounds and one library call;
 9. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
    against the plain path on the CPU, and the same for the reference's
    parity-harness UNet (128^2, inner 16, 8 norm groups), whose 64^2
    cross-attention has heads of D=16 (padded to 32);
 10. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
-   EMA 0.999) through ``make_resdiff_train_step``: 3 in fp32, 3 with the bf16
-   policy, 1 with bf16 and remat, each with its launch counts, loss,
-   parameter and EMA movement, ms and peak memory; then one traced step of
-   each policy (``train_profile``, bf16 and float32);
-11. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
+   EMA 0.999) through ``make_resdiff_train_step`` in fp32, bf16 and bf16 with
+   remat: the graphed step (one CUDA graph a step) against the eager step, 3
+   steps each from one state and the same generators (losses, parameters,
+   EMA, optimizer state and generator states bitwise equal; cuDNN
+   deterministic), parameter and EMA movement, fp32 masters, ms and peak
+   memory; the graph's kernel nodes (2 / 2 / 2 / 29 a step; remat 4 / 2 / 2
+   / 58) and one traced replay and one traced eager step of each policy
+   (``train_profile``: wall, busy and idle share side by side);
+11. ``cli``: ``python -m mrisr_torch.cli`` in this process at 256^2, bs 8:
+   ``train-cnn``, ``train-resdiff`` (bf16, 30 steps, validation through the
+   graphed pipeline on the EMA weights) and ``--resume`` (5 more),
+   ``build-cache`` and ``train-resdiff --cache``, ``sr-volume`` on a
+   220x220x40 NIfTI with the checkpoint just written; each trainer's steps/s,
+   batch-making and waiting time against the step's device time; one traced
+   replay of the trainer's step and of the volume's chain (their launches);
+12. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
    dropout 0, kernels on) against the CPU plain path, per parameter; and
    the same for the parity-harness UNet;
-12. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
+13. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
    ``--pipeline latent``) in a subprocess, its JSON line echoed.
 
-Each main path (chain, checkpoint, volume, ddpm, latent, train) is driven with the
-kernels' launch counts set to 0 just before it and read just after.  A
+Each main path (chain, checkpoint, volume, ddpm, latent, train, cli) is driven with
+the kernels' launch counts set to 0 just before it and read just after.  A
 replayed CUDA graph calls no wrapper: a graphed path (chain, checkpoint,
-volume, latent) is traced, its wrappers' counts must stay 0, and its launches are
-the captured graph's kernel nodes times the graph launches in the trace,
-held equal to what the path must launch (``replayed``).
+volume, latent, train, cli) is traced, its wrappers' counts must stay 0, and its
+launches are the captured graph's kernel nodes times the graph launches in the
+trace, held equal to what the path must launch (``replayed``).
 Then the kernels summary line, the nvidia-smi line, and last the result line.
 ``--phases a,b`` runs only the named phases (device and build always run);
 ``--log FILE`` also writes every JSON line to FILE.
@@ -642,7 +656,9 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
     do not overlap).  Its idle share is taken against ``chain_ms``, the same
     run timed without the profiler, and against the profiled run's own wall
     time.  ``kernel_events`` counts the device events whose name holds each
-    kernel's part (``KERNEL_PARTS``).
+    kernel's part (``KERNEL_PARTS``).  The tracer's own records are read
+    (``kineto_results.events()``), not ``key_averages()``: its Python event
+    tree takes more than ten times as long to build.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -650,7 +666,7 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
     kept = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: kept.update(events=p.key_averages())) as prof:
+                 on_trace_ready=lambda p: kept.update(events=p.profiler.kineto_results.events())) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()
@@ -659,22 +675,27 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
-    events = kept["events"]
     # The step's own range ("ProfilerStep#1") spans the whole run on the device: it is no device event.
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in events
-            if e.device_type == DeviceType.CUDA and e.key not in ranges and not e.key.startswith("ProfilerStep")]
-    rows.sort(key=lambda r: -r[1])
+    # Named ranges (record_function): the device time from the first to the last kernel launched inside
+    # each, any gap between them included.
+    by_name, in_ranges, graph_launches = {}, {}, 0
+    for e in kept["events"]:
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA and not name.startswith("ProfilerStep"):
+            row = (in_ranges if name in ranges else by_name).setdefault(name, [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+        elif e.device_type() == DeviceType.CPU and name.startswith("cudaGraphLaunch"):
+            graph_launches += 1
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    # Named ranges (record_function): the device time from the first to the last
-    # kernel launched inside each, any gap between them included.
-    in_ranges = {e.key: {"device_span_ms": e.device_time_total / 1e3, "count": e.count}
-                 for e in events if e.device_type == DeviceType.CUDA and e.key in ranges}
-    return out, {"device_busy_ms": busy_ms, "ranges": in_ranges,
+    return out, {"device_busy_ms": busy_ms,
+                 "ranges": {k: {"device_span_ms": ms, "count": n} for k, (ms, n) in in_ranges.items()},
                  "idle_share": None if chain_ms is None else 1.0 - busy_ms / chain_ms,
                  "profiled_chain_ms": profiled_ms, "profiled_idle_share": 1.0 - busy_ms / profiled_ms,
-                 "device_events": sum(r[2] for r in rows),
-                 "graph_launches": sum(e.count for e in events
-                                       if e.device_type == DeviceType.CPU and e.key.startswith("cudaGraphLaunch")),
+                 "device_events": sum(r[2] for r in rows), "graph_launches": graph_launches,
                  "kernel_events": {name: sum(n for k, _, n in rows if part in k) for name, part in KERNEL_PARTS.items()},
                  "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]}
 
@@ -1095,7 +1116,7 @@ def phase_ddpm(torch):
     return counts
 
 
-BENCH_RUNS = (["--fast", "8"], ["--fast", "0"], ["--pipeline", "latent"])
+BENCH_RUNS = (["--fast", "8"], ["--fast", "0"], ["--pipeline", "latent", "--repeats", "1"])
 
 
 def phase_bench():
@@ -1154,82 +1175,148 @@ def _synthetic_batch(torch, batch, size, seed, device):
     return {"sr": sr.to(device), "hr": hr.to(device)}
 
 
+TRAIN_STEPS = 3  # graphed and eager steps of each policy, from one state and the same generators
+TRAIN_POLICIES = (("float32", False), ("bfloat16", False), ("bfloat16", True))
+
+
+def train_expect(remat):
+    """Launches of one 256^2 training step (the forward runs twice with remat)."""
+    return dict(TRAIN_LAUNCHES, **({"flash_attention_fwd": 4, "group_norm_silu": 58} if remat else {}))
+
+
+class _OneGraph:
+    """``replayed``'s view of a graphed training step: its one captured graph."""
+
+    def __init__(self, step):
+        self.graphs = {"step": step}
+
+
+def _state_tensors(state):
+    flat = []
+
+    def walk(tree):
+        if hasattr(tree, "dtype"):
+            flat.append(tree)
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+
+    walk({"params": state.params, "opt": state.opt_state, "ema": state.ema_params})
+    return flat
+
+
 def phase_train(torch):
+    """Full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5, EMA 0.999) through
+    ``make_resdiff_train_step`` in fp32, bf16 and bf16 with remat: the graphed step (one CUDA graph replayed
+    a step) against the eager step over ``TRAIN_STEPS`` steps from one state and the same generators (losses,
+    parameters, EMA, optimizer state and the generators' states bitwise equal under deterministic cuDNN);
+    parameter movement, the EMA identity and fp32 masters each step; the graph's kernel nodes held to
+    ``train_expect``; one traced replay (the path's launches: nodes times traced graph launches) and one
+    traced eager step of each policy (``train_profile``: wall, busy and idle share side by side); and a step
+    graphed under cuDNN's default (non-deterministic) algorithms, timed (``train_timing``)."""
     from mrisr_torch.diffusion.schedules import resdiff_schedule
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
-    from mrisr_torch.ops import launch_counts, reset_launch_counts
     from mrisr_torch.train.precision import get_policy
     from mrisr_torch.train.state import create_train_state, make_optimizer
     from mrisr_torch.train.steps import make_resdiff_train_step, step_generator
 
+    torch.backends.cudnn.deterministic = True
     torch.manual_seed(4)
     unet = ResDiffUNet(image_size=SIZE)  # the trainer's defaults: dropout 0.2, ca_kv_pool 0
     sched = resdiff_schedule(1000)
     batch = _synthetic_batch(torch, BATCH, SIZE, 5, "cuda")
     totals = {k: 0 for k in TRAIN_LAUNCHES}
-    for precision, remat, n_steps in (("float32", False, 3), ("bfloat16", False, 3), ("bfloat16", True, 1)):
+    d = TRAIN_EMA
+    for precision, remat in TRAIN_POLICIES:
+        expect = train_expect(remat)
+        policy = get_policy(precision)
         state = create_train_state(unet, make_optimizer(TRAIN_LR), ema_decay=TRAIN_EMA)
-        step = make_resdiff_train_step(unet, sched, get_policy(precision), remat=remat)
-        expect = dict(TRAIN_LAUNCHES)
-        if remat:  # the forward runs twice
-            expect.update(flash_attention_fwd=4, group_norm_silu=58)
-        for i in range(n_steps):
+        eager_state = state.clone()
+        graphed = make_resdiff_train_step(unet, sched, policy, remat=remat)
+        eager = make_resdiff_train_step(unet, sched, policy, remat=remat, cuda_graph=False)
+        recs = []
+        for i in range(TRAIN_STEPS):
+            before = {k: p.clone() for k, p in state.params.items()}
+            ema_before = {k: e.clone() for k, e in state.ema_params.items()}
+            gen, egen = step_generator(6, i, "cuda"), step_generator(6, i, "cuda")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
             t0 = time.perf_counter()
-            new, metrics = step(state, batch, step_generator(6, i, "cuda"))
+            out, metrics = graphed(state, batch, gen)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            counts = launch_counts()
-            for k in totals:
-                totals[k] += counts[k]
-            loss = float(metrics["loss"])
-            moved = max(float((new.params[k] - p).abs().max()) for k, p in state.params.items())
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            t0 = time.perf_counter()
+            eager_state, emetrics = eager(eager_state, batch, egen)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            loss, eager_loss = float(metrics["loss"]), float(emetrics["loss"])
+            moved = max(float((state.params[k] - p).abs().max()) for k, p in before.items())
             # One Adam step moves a parameter by about lr (at most (1-b1)/sqrt(1-b2) = 3.2 lr).
-            # EMA: ema' = d ema + (1 - d) p', so it moves by (1 - d) of (p' - ema).
-            d = TRAIN_EMA
-            ema_err = max(float((new.ema_params[k] - (d * e + (1 - d) * new.params[k])).abs().max())
-                          for k, e in state.ema_params.items())
-            ema_moved = max(float((new.ema_params[k] - e).abs().max()) for k, e in state.ema_params.items())
-            ulp = 2.0**-23 * max(float(p.abs().max()) for p in new.params.values())  # fp32 spacing at the largest
-            grads_dtypes = sorted({str(p.dtype) for p in new.params.values()})
-            ok = (counts == expect and math.isfinite(loss) and 0.0 < moved <= 4.0 * TRAIN_LR
-                  and ema_err <= 1e-7 and 0.0 < ema_moved <= 4.0 * TRAIN_LR * (1 - d) * (i + 1) + ulp
-                  and new.step == state.step + 1 and grads_dtypes == ["torch.float32"])
+            # EMA: ema' = d ema + (1 - d) p', one lerp toward p', so it moves by (1 - d) of (p' - ema).  That
+            # move is below an fp32 ulp of the EMA, so it is held exactly to the lerp of the values it had.
+            ulp = 2.0**-23 * max(float(p.abs().max()) for p in state.params.values())  # fp32 spacing at the largest
+            keys = list(ema_before)
+            ema_want = torch._foreach_lerp([ema_before[k] for k in keys], [state.params[k] for k in keys], 1.0 - d)
+            ema_err = max(float((state.ema_params[k] - w).abs().max()) for k, w in zip(keys, ema_want))
+            ema_moved = max(float((state.ema_params[k] - e).abs().max()) for k, e in ema_before.items())
+            same = (loss == eager_loss and torch.equal(gen.get_state(), egen.get_state())
+                    and all(torch.equal(a, b) for a, b in zip(_state_tensors(state), _state_tensors(eager_state))))
+            dtypes = sorted({str(p.dtype) for p in state.params.values()})
+            ok = (out is state and same and state.step == eager_state.step == i + 1 and math.isfinite(loss)
+                  and 0.0 < moved <= 4.0 * TRAIN_LR and ema_err == 0.0
+                  and 0.0 < ema_moved <= 4.0 * TRAIN_LR * (1 - d) * (i + 1) + ulp and dtypes == ["torch.float32"])
             rec = {"phase": "train", "precision": precision, "remat": remat, "step": i, "batch": BATCH,
-                   "size": SIZE, "launches": counts, "loss": loss, "ms": ms, "param_max_move": moved,
-                   "ema_max_move": ema_moved, "ema_identity_max_err": ema_err, "master_dtypes": grads_dtypes,
-                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "ok": ok}
+                   "size": SIZE, "loss": loss, "eager_loss": eager_loss, "graph_equals_eager": same,
+                   "graph_ms": ms, "eager_ms": eager_ms, "param_max_move": moved, "ema_max_move": ema_moved,
+                   "ema_identity_max_err": ema_err, "master_dtypes": dtypes, "max_memory_allocated_gib": peak,
+                   "ok": ok}
             emit(rec)
+            recs.append(rec)
             if not ok:
-                raise AssertionError(f"training step failed its checks (expected launches {expect}): {rec}")
-            state = new
-
-    # One more step of each policy (remat off) under the profiler: where the step's time goes.
-    for precision in ("bfloat16", "float32"):
-        profile_step(torch, unet, sched, batch, precision)
+                raise AssertionError(f"training step failed its checks: {rec}")
+        # The path's launches: one more replay, traced (the wrappers count nothing in it).
+        replay_ms = min(r["graph_ms"] for r in recs[1:])
+        gen = step_generator(6, TRAIN_STEPS, "cuda")
+        _, counts, prof = replayed(torch, lambda: graphed(state, batch, gen), _OneGraph(graphed), 1,
+                                   f"train {precision} remat={remat} replay", replay_ms, expect)
+        add_counts(totals, counts)
+        eager_prof = profile_step(torch, eager, eager_state, batch, min(r["eager_ms"] for r in recs[1:]))
+        emit({"phase": "train_profile", "precision": precision, "remat": remat, "graph": "replay",
+              "step_ms": replay_ms, "graph_kernel_nodes": prof["graph_kernel_nodes"], "launches": counts,
+              "launches_from": "the graph's kernel nodes times the graph launches in a trace of one replay",
+              **{k: v for k, v in prof.items() if k != "graph_kernel_nodes"}})
+        emit({"phase": "train_profile", "precision": precision, "remat": remat, "graph": "eager",
+              "step_ms": min(r["eager_ms"] for r in recs[1:]), **eager_prof})
+        # The comparisons run cuDNN's deterministic algorithms; a step graphed under its default ones, timed.
+        torch.backends.cudnn.deterministic = False
+        timing = make_resdiff_train_step(unet, sched, policy, remat=remat)
+        timing_state = state.clone()
+        default_ms = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timing(timing_state, batch, step_generator(7, i, "cuda"))
+            torch.cuda.synchronize()
+            default_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.backends.cudnn.deterministic = True
+        emit({"phase": "train_timing", "precision": precision, "remat": remat, "cudnn": "default",
+              "first_call_ms": default_ms[0], "graph_ms": default_ms[1:],
+              "deterministic_graph_ms": [r["graph_ms"] for r in recs[1:]],
+              "eager_ms": [r["eager_ms"] for r in recs[1:]]})
+        del graphed, eager, state, eager_state, timing, timing_state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
     return totals
 
 
-def profile_step(torch, unet, sched, batch, precision):
-    """One traced training step after two warm ones (``train_profile``): device busy time, idle share and
-    the largest kernels."""
-    from mrisr_torch.train.precision import get_policy
-    from mrisr_torch.train.state import create_train_state, make_optimizer
-    from mrisr_torch.train.steps import make_resdiff_train_step, step_generator
+def profile_step(torch, step, state, batch, step_ms):
+    """One traced eager training step: device busy time, idle share and the largest kernels."""
+    from mrisr_torch.train.steps import step_generator
 
-    state = create_train_state(unet, make_optimizer(TRAIN_LR), ema_decay=TRAIN_EMA)
-    step = make_resdiff_train_step(unet, sched, get_policy(precision))
-    state, _ = step(state, batch, step_generator(6, 0, "cuda"))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = step(state, batch, step_generator(6, 1, "cuda"))
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    _, rec = profile_chain(torch, lambda: step(state, batch, step_generator(6, 2, "cuda")), step_ms,
+    _, rec = profile_chain(torch, lambda: step(state, batch, step_generator(6, 99, "cuda")), step_ms,
                            ranges=("group_norm_silu_backward",))
-    emit({"phase": "train_profile", "precision": precision, "step_ms": step_ms, **rec})
+    return rec
 
 
 def phase_grad(torch):
@@ -1264,7 +1351,7 @@ def check_gradients(torch, unet_kwargs, seed, expect):
             return {k: torch.zeros_like(g) for k, g in grads.items()}, opt_state
 
         state = create_train_state(unet, Optimizer(lambda params: {}, record), device=device)
-        step = make_resdiff_train_step(unet, sched, device=device)
+        step = make_resdiff_train_step(unet, sched, device=device, cuda_graph=False)  # eager: the draws are given
         on = lambda tree: {k: v.to(device) for k, v in tree.items()}  # noqa: E731
         t0 = time.perf_counter()
         _, metrics = step(state, on(batch), None, on(draws))
@@ -1287,11 +1374,166 @@ def check_gradients(torch, unet_kwargs, seed, expect):
         raise AssertionError(f"gradients on the card disagree with the CPU plain path: {rec}")
 
 
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_CACHE_STEPS, CLI_VAL_STEPS = 30, 5, 5, 10
+
+
+def _run_record(out_dir):
+    """The ``run_`` record a CLI trainer logs last to ``metrics.jsonl`` (throughput and data time)."""
+    from pathlib import Path
+
+    lines = Path(out_dir, "metrics.jsonl").read_text().splitlines()
+    return {k: v for k, v in json.loads(lines[-1]).items() if k.startswith("run_")}
+
+
+def traced_command(torch, what, run, graph_of, per_launch, graph_launches):
+    """A command that captures one CUDA graph and replays it, traced whole (``profile_chain``) with the
+    wrappers' counts set to 0 just before it and read just after.  Its launches are the graph's kernel nodes
+    (which must be ``per_launch``) times the graph launches in the trace (which must be ``graph_launches``).
+    The wrappers count the eager launches (the warm-ups) and the capture (one per node, which runs nothing),
+    so the trace's kernel records must be the graph's launches plus the wrappers' counts less the nodes, less
+    at most ``TRACE_MISS`` of them; a trace that falls short by more is taken again (``TRACE_TRIES`` at
+    most), which runs the command again.  -> (result, launches, record)."""
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+
+    shortfall = []
+    for _ in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, prof = profile_chain(torch, run)
+        wall = time.perf_counter() - t0
+        wrapped = launch_counts()
+        nodes = graph_kernel_nodes(graph_of(out))
+        launches = {k: n * prof["graph_launches"] for k, n in nodes.items()}
+        want = {k: launches[k] + wrapped[k] - nodes[k] for k in nodes}
+        seen = prof["kernel_events"]
+        shortfall.append({k: want[k] - seen[k] for k in want})
+        if any(seen[k] > want[k] for k in want) or all(seen[k] >= want[k] * (1 - TRACE_MISS) for k in want):
+            break
+    rec = {"command": what, "traced_wall_s": wall, "traced_run_s": prof["profiled_chain_ms"] / 1e3,
+           "graph_kernel_nodes": nodes,
+           "graph_launches": prof["graph_launches"], "launches": launches, "wrapper_counts": wrapped,
+           "kernel_events": seen, "trace_shortfall": shortfall, "device_busy_ms": prof["device_busy_ms"],
+           "device_events": prof["device_events"],
+           "launches_from": "the graph's kernel nodes times the graph launches in a trace of the whole command"}
+    if (nodes != per_launch or prof["graph_launches"] != graph_launches or any(wrapped[k] < nodes[k] for k in nodes)
+            or any(not want[k] * (1 - TRACE_MISS) <= seen[k] <= want[k] for k in want)):
+        raise AssertionError(f"cli {what}: graph kernel nodes {nodes} (expected {per_launch}), "
+                             f"{prof['graph_launches']} graph launches (expected {graph_launches}), kernels in "
+                             f"the trace {seen} (expected {want}), wrapper counts {wrapped}, each trace's "
+                             f"shortfall {shortfall}")
+    return out, launches, rec
+
+
+def phase_cli(torch):
+    """The command line in this process, at full width on the card (256^2, bs 8; the phantom data):
+    ``train-cnn``; ``train-resdiff`` in bf16 for ``CLI_TRAIN_STEPS`` steps with validation (the graphed
+    ``ResDiffPipeline`` on the EMA weights, ``CLI_VAL_STEPS``-step chains), then ``--resume`` for
+    ``CLI_RESUME_STEPS`` more, held bitwise (parameters, EMA, optimizer state) to an uninterrupted run of as
+    many steps (these three under deterministic cuDNN); ``build-cache`` and ``train-resdiff --cache``;
+    ``sr-volume`` on a 220x220x40 NIfTI with the checkpoint just written (fp32, 50 steps).  For each trainer:
+    steps per second, the loader's time to make a batch and the loop's wait for one against the step's
+    device time.  The path's launches: the ``--resume`` and ``sr-volume`` commands traced whole
+    (``traced_command``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mrisr_torch import cli
+    from mrisr_torch.data.nifti import read_nifti, write_nifti
+
+    totals = {}
+    common = ["--resolution", str(SIZE), "--batch", str(BATCH)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def command(name, argv):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result, counts = counted(torch, lambda: cli.run(argv))
+            wall = time.perf_counter() - t0
+            rec = {"phase": "cli", "command": name, "argv": argv[1:], "wall_s": wall, "wrapper_counts": counts}
+            return result, rec
+
+        _, rec = command("train-cnn", ["train-cnn", *common, "--steps", "10", "--out", f"{tmp}/cnn"])
+        emit({**rec, **_run_record(f"{tmp}/cnn")})
+        torch.backends.cudnn.deterministic = True  # the resumed run is compared bitwise
+        rd = ["train-resdiff", *common, "--precision", "bfloat16", "--cnn-checkpoint", f"{tmp}/cnn/ckpt",
+              "--val-every", str(CLI_TRAIN_STEPS // 2), "--val-steps", str(CLI_VAL_STEPS)]
+        res, rec = command("train-resdiff", rd + ["--out", f"{tmp}/rd", "--steps", str(CLI_TRAIN_STEPS)])
+        val = [json.loads(x) for x in open(f"{tmp}/rd/metrics.jsonl") if "val_psnr" in x]
+        emit({**rec, **_run_record(f"{tmp}/rd"), "cudnn": "deterministic", "validations": val,
+              "val_graphs": len(res["pipeline"].graphs),
+              "graph_kernel_nodes": graph_kernel_nodes(res["step"].graph)})
+        del res
+        torch.cuda.empty_cache()
+        shutil.copytree(f"{tmp}/rd/ckpt", f"{tmp}/rd_ckpt_at_{CLI_TRAIN_STEPS}")
+        total = CLI_TRAIN_STEPS + CLI_RESUME_STEPS
+
+        def resume():  # from the checkpoint the first run left, again on each trace
+            shutil.rmtree(f"{tmp}/rd/ckpt")
+            shutil.copytree(f"{tmp}/rd_ckpt_at_{CLI_TRAIN_STEPS}", f"{tmp}/rd/ckpt")
+            return cli.run(rd + ["--out", f"{tmp}/rd", "--steps", str(total), "--resume"])
+
+        res, counts, trace = traced_command(torch, "train-resdiff --resume", resume, lambda r: r["step"].graph,
+                                            TRAIN_LAUNCHES, CLI_RESUME_STEPS)
+        add_counts(totals, counts)
+        resumed = res["state"]
+        emit({"phase": "cli_profile", **trace, **_run_record(f"{tmp}/rd"), "step": resumed.step})
+        del res
+        torch.cuda.empty_cache()
+        res, rec = command("train-resdiff uninterrupted", rd + ["--out", f"{tmp}/rd_full", "--steps", str(total)])
+        whole = res["state"]
+        same = [torch.equal(a, b) for a, b in zip(_state_tensors(resumed), _state_tensors(whole), strict=True)]
+        ok = (resumed.step == whole.step == total and all(same) and len(val) == 2
+              and all(math.isfinite(v["val_psnr"]) for v in val))
+        emit({**rec, **_run_record(f"{tmp}/rd_full"), "cudnn": "deterministic", "step": whole.step,
+              "resumed_equals_uninterrupted": all(same), "tensors_compared": len(same),
+              "tensors_differing": same.count(False), "ok": ok})
+        if not ok:
+            raise AssertionError(f"cli: train-resdiff --resume: step {resumed.step} of {total}, "
+                                 f"{same.count(False)} of {len(same)} tensors differ from the uninterrupted "
+                                 f"run's, validations {val}")
+        torch.backends.cudnn.deterministic = False
+        del res, resumed, whole
+        torch.cuda.empty_cache()
+
+        _, rec = command("build-cache", ["build-cache", "--resolution", str(SIZE), "--out", f"{tmp}/phantom.slc"])
+        emit(rec)
+        _, rec = command("train-resdiff --cache", ["train-resdiff", *common, "--precision", "bfloat16",
+                                                   "--cache", f"{tmp}/phantom.slc", "--out", f"{tmp}/rdc",
+                                                   "--steps", str(CLI_CACHE_STEPS)])
+        emit({**rec, **_run_record(f"{tmp}/rdc")})
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(3)
+        xx, yy = np.meshgrid(np.linspace(-1, 1, VOLUME_SHAPE[0]), np.linspace(-1, 1, VOLUME_SHAPE[1]),
+                             indexing="ij")
+        head = (xx**2 + yy**2 < 0.8)[..., None] * np.linspace(300, 900, VOLUME_SHAPE[2])[None, None, :]
+        write_nifti(f"{tmp}/vol.nii", (head + rng.normal(0, 40, VOLUME_SHAPE)).astype(np.float32),
+                    np.diag([1.0, 1.0, 3.0, 1.0]))
+        argv = ["sr-volume", *common, "--checkpoint", f"{tmp}/rd/ckpt", "--input", f"{tmp}/vol.nii",
+                "--output", f"{tmp}/sr.nii"]
+        n_chains = -(-VOLUME_SHAPE[2] // BATCH)
+        res, counts, trace = traced_command(torch, "sr-volume", lambda: cli.run(argv),
+                                            lambda r: next(iter(r["pipeline"].graphs.values())).graph,
+                                            chain_expect(STEPS), n_chains)
+        add_counts(totals, counts)
+        served = read_nifti(f"{tmp}/sr.nii").data
+        ok = len(res["pipeline"].graphs) == 1 and served.shape == VOLUME_SHAPE and bool(np.isfinite(served).all())
+        emit({"phase": "cli_profile", **trace, "shape": list(served.shape),
+              "out_range": [float(served.min()), float(served.max())],
+              "traced_slices_per_s": VOLUME_SHAPE[2] / trace["traced_wall_s"], "ok": ok})
+        if not ok:
+            raise AssertionError(f"cli: sr-volume gave {served.shape} from {len(res['pipeline'].graphs)} graphs")
+    return totals
+
+
 LATENT_STEPS = 20
 # (case, batch, condition size): the bench's 512^2 chain (64^2 latents, every attention dense) and a 1024^2
 # chain (128^2 latents: the level-0 self-attentions see 16384 keys and go through B1, heads of D=40).
 LATENT_CHAINS = (("512", 8, 512), ("1024", 2, 1024))
-LATENT_REPS = 2  # timed calls of each latent chain, graph and eager
+# The run's time limit: no separate timed call of a latent chain.  A graphed chain's time is its traced replay's
+# wall (``profiled_chain_ms``), an eager chain's that of the eager call whose launches are counted.
 # What the module structure gives for a 20-step chain: B3 65 a ControlNet+UNet step (UNet 22 ResnetBlock2D
 # x 2 + conv_norm_out, ControlNet 10 x 2) and 50 in the VAE (encoder 10 x 2 + 1, decoder 14 x 2 + 1); 45 a
 # step in adapter mode; B1 7 a step at 128^2 latents (UNet 2 + 3, ControlNet 2), none at 64^2.
@@ -1402,8 +1644,8 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
         raise AssertionError(f"{what}: first call's launch counts {first_counts}, expected twice {expect}")
     if tuple(out.shape) != (batch, size, size, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{what}: bad output {tuple(out.shape)}")
-    graph_ms, graph_event_ms = timed_chains(torch, run, LATENT_REPS)
-    again, counts, graph_prof = replayed(torch, run, pipe, 1, f"{what} graph replay", min(graph_ms), expect)
+    again, counts, graph_prof = replayed(torch, run, pipe, 1, f"{what} graph replay", None, expect)
+    graph_ms, graph_event_ms = [graph_prof["profiled_chain_ms"]], None
     rec = {"phase": "latent", "mode": mode, "case": case, "batch": batch, "size": size, "latent": size // 8,
            "steps": LATENT_STEPS, "dtype": "bfloat16", "expected_launches": expect, "launches": counts,
            "launches_from": "the graph's kernel nodes times the graph launches in a trace of one replay",
@@ -1419,11 +1661,17 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
         erun = lambda: eager.super_resolve(lr, num_inference_steps=LATENT_STEPS, noise=noise)  # noqa: E731
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # The counted eager chain is also the timed one (the run's time limit).
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
         (eager_out, heads), eager_counts = counted(torch, lambda: recording_heads(torch, erun))
+        end.record()
+        torch.cuda.synchronize()
+        eager_ms, eager_event_ms = [(time.perf_counter() - t0) * 1e3], [start.elapsed_time(end)]
         eager_peak = torch.cuda.max_memory_allocated() / 2**30
         from_gen = [p.super_resolve(lr, torch.Generator(device="cuda").manual_seed(5), LATENT_STEPS)
                     for p in (pipe, eager)]
-        eager_ms, eager_event_ms = timed_chains(torch, erun, LATENT_REPS)
         _, eager_prof = traced(torch, erun, min(eager_ms), lambda _: eager_counts)
         rec.update(eager_launches=eager_counts, eager_trace_launches=eager_prof["kernel_events"],
                    eager_chain_ms=eager_ms, eager_event_ms=eager_event_ms, eager_peak_gib=eager_peak,
@@ -1500,8 +1748,8 @@ def phase_latent(torch):
     prompt = torch.randn((1, 77, 768), generator=torch.Generator().manual_seed(20)).to(torch.bfloat16)
     unet, cn, vae = latent_modules(torch, torch.bfloat16)
     heads = None
-    for case, batch, size in LATENT_CHAINS:
-        counts, seen = latent_chain(torch, unet, cn, vae, prompt, case, batch, size)
+    for case, batch, size in LATENT_CHAINS:  # eagerly too at 512^2 only (the run's time limit)
+        counts, seen = latent_chain(torch, unet, cn, vae, prompt, case, batch, size, eager_too=size == 512)
         heads = heads or seen
         add_counts(totals, counts)
         torch.cuda.empty_cache()
@@ -1551,9 +1799,9 @@ def summary(recs, path_launches):
     return {"kernels": entries}
 
 
-PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "forward", "train", "grad", "bench")
+PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "forward", "train", "cli", "grad", "bench")
 # Paths whose launches the kernels line counts; serving paths launch no backward kernel.
-MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "train")
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "train", "cli")
 
 
 def main(argv) -> int:
@@ -1595,6 +1843,8 @@ def main(argv) -> int:
         phase_forward(torch)
     if "train" in phases:
         path_launches["train"] = phase_train(torch)
+    if "cli" in phases:
+        path_launches["cli"] = phase_cli(torch)
     if "grad" in phases:
         phase_grad(torch)
     if "bench" in phases:

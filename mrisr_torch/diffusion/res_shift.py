@@ -8,7 +8,10 @@
 
 The step noise is a float32 tensor drawn by the caller, so a test can hand in
 another framework's draw and a CUDA graph can read it from a static buffer.
-Every function computes in float32 and returns its carry's dtype.
+Every function computes in float32.  As in the reference, where the float32
+schedule promotes a bf16 anchor, the forward process returns float32 (so a
+bf16 chain's carry is float32 from its start) and a reverse step keeps its
+carry's dtype.
 """
 from __future__ import annotations
 
@@ -20,11 +23,11 @@ from mrisr_torch.diffusion.schedules import Schedule, extract
 def shift_forward(
     sched: Schedule, hr: torch.Tensor, lr: torch.Tensor, t: torch.Tensor, noise: torch.Tensor
 ) -> torch.Tensor:
-    """Shifted forward process: from HR toward LR as t grows; returns ``hr``'s dtype."""
+    """Shifted forward process: from HR toward LR as t grows; float32 (the schedule's dtype)."""
     ac = extract(sched.alphas_cumprod, t, hr.ndim)
     sa = torch.sqrt(ac)
     mu = sa * hr.float() + (1.0 - sa) * lr.float()
-    return (mu + torch.sqrt(1.0 - ac) * noise.float()).to(hr.dtype)
+    return mu + torch.sqrt(1.0 - ac) * noise.float()
 
 
 def predict_x0(

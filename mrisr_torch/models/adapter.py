@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrisr_torch.device import resolve_device
+from mrisr_torch.models.sd_layers import Conv2d
 
 
 class AdapterResnetBlock(nn.Module):
@@ -23,10 +24,10 @@ class AdapterResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3):
         super().__init__()
         p = ksize // 2
-        self.in_conv = nn.Conv2d(in_channels, out_channels, ksize, padding=p)
-        self.block1 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.block2 = nn.Conv2d(out_channels, out_channels, ksize, padding=p)
-        self.skep = nn.Conv2d(out_channels, out_channels, ksize, padding=p)
+        self.in_conv = Conv2d(in_channels, out_channels, ksize, padding=p)
+        self.block1 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.block2 = Conv2d(out_channels, out_channels, ksize, padding=p)
+        self.skep = Conv2d(out_channels, out_channels, ksize, padding=p)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_in = self.in_conv(x)
@@ -51,16 +52,16 @@ class T2IAdapter(nn.Module):
         self.channels, self.num_res_blocks = tuple(channels), num_res_blocks
         self.unshuffle_factor, self.zero_out = unshuffle_factor, zero_out
         with dev:
-            self.conv_in = nn.Conv2d(cin, channels[0], 3, padding=1)
+            self.conv_in = Conv2d(cin, channels[0], 3, padding=1)
             prev = channels[0]
             for i, c in enumerate(channels):
                 for j in range(num_res_blocks):
                     if i > 0 and j == 0:  # the downsample keeps its input's channels
-                        self.add_module(f"body_{i}_{j}_down", nn.Conv2d(prev, prev, 3, stride=2, padding=1))
+                        self.add_module(f"body_{i}_{j}_down", Conv2d(prev, prev, 3, stride=2, padding=1))
                     self.add_module(f"body_{i}_{j}", AdapterResnetBlock(prev, c, ksize))
                     prev = c
                 if zero_out:
-                    proj = nn.Conv2d(c, c, 1)
+                    proj = Conv2d(c, c, 1)
                     nn.init.zeros_(proj.weight)
                     nn.init.zeros_(proj.bias)
                     self.add_module(f"out_proj_{i}", proj)

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrisr_torch.device import resolve_device
+from mrisr_torch.models.sd_layers import Conv2d
 from mrisr_torch.models.sd_unet import build_down_tower, skip_channels, time_embedding
 
 
@@ -25,11 +26,11 @@ class ControlNetConditioningEmbedding(nn.Module):
         super().__init__()
         bc = list(block_channels)
         self.stages = len(bc) - 1
-        self.conv_in = nn.Conv2d(in_channels, bc[0], 3, padding=1)
+        self.conv_in = Conv2d(in_channels, bc[0], 3, padding=1)
         for i in range(self.stages):
-            self.add_module(f"blocks_{2 * i}", nn.Conv2d(bc[i], bc[i], 3, padding=1))
-            self.add_module(f"blocks_{2 * i + 1}", nn.Conv2d(bc[i], bc[i + 1], 3, stride=2, padding=1))
-        self.conv_out = nn.Conv2d(bc[-1], out_channels, 3, padding=1)
+            self.add_module(f"blocks_{2 * i}", Conv2d(bc[i], bc[i], 3, padding=1))
+            self.add_module(f"blocks_{2 * i + 1}", Conv2d(bc[i], bc[i + 1], 3, stride=2, padding=1))
+        self.conv_out = Conv2d(bc[-1], out_channels, 3, padding=1)
         nn.init.zeros_(self.conv_out.weight)
         nn.init.zeros_(self.conv_out.bias)
 
@@ -66,8 +67,8 @@ class ControlNet(nn.Module):
             self.controlnet_cond_embedding = ControlNetConditioningEmbedding(cond_channels, ch[0],
                                                                              cond_block_channels)
             for i, c in enumerate(skip_channels(ch, layers_per_block)):
-                self.add_module(f"controlnet_down_blocks_{i}", nn.Conv2d(c, c, 1))
-            self.controlnet_mid_block = nn.Conv2d(ch[-1], ch[-1], 1)
+                self.add_module(f"controlnet_down_blocks_{i}", Conv2d(c, c, 1))
+            self.controlnet_mid_block = Conv2d(ch[-1], ch[-1], 1)
             self.n_skips = len(skip_channels(ch, layers_per_block))
             for name in [f"controlnet_down_blocks_{i}" for i in range(self.n_skips)] + ["controlnet_mid_block"]:
                 nn.init.zeros_(getattr(self, name).weight)

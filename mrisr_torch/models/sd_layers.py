@@ -8,6 +8,12 @@ places: the feed-forward's GEGLU uses tanh-approximate GELU (Flax's
 ``nn.gelu`` default) and the transformer blocks' LayerNorms have eps 1e-6
 (Flax's default).
 
+Every layer computes in the promoted dtype of its input and parameters, as
+Flax's do: bf16 weights meet the fp32 latent carry of a bf16 chain in fp32,
+and bf16 inputs (the VAE encoder's, the condition's, the prompt's) in bf16.
+``Conv2d``, ``Linear`` and ``LayerNorm`` here are ``nn``'s with that rule;
+the latent modules build theirs from them.
+
 Every GroupNorm followed by SiLU (the two heads of a ``ResnetBlock2D`` and
 the ``conv_norm_out`` of the UNet, ControlNet and VAE) goes through
 :func:`gn_silu`, the fused GroupNorm+SiLU kernel; the GroupNorms without
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrisr_torch.models.layers import _linear, _tokens_to_nchw, nearest_up2
+from mrisr_torch.models.layers import _tokens_to_nchw, nearest_up2
 from mrisr_torch.ops.attention import dense_attention, spatial_attention
 from mrisr_torch.ops.groupnorm import group_norm_silu
 
@@ -36,14 +42,48 @@ def gn_groups(channels: int, groups: int = 32) -> int:
     return groups if channels % groups == 0 else math.gcd(channels, groups)
 
 
+def _promote(x: torch.Tensor, *params: torch.Tensor | None) -> list[torch.Tensor | None]:
+    """``x`` and ``params`` in their promoted dtype, as Flax's layers compute (a bf16 weight meets an fp32
+    input in fp32; upcasting it is exact).  A tensor already in that dtype is returned as it is."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return [None if t is None else t.to(dt) for t in (x, *params)]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computed in the promoted dtype of its input and parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*_promote(x, self.weight, self.bias))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computed in the promoted dtype of its input and parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*_promote(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in the promoted dtype of its input and parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = _promote(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
 def gn_silu(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
-    """SiLU(``norm``(x)) through the fused GroupNorm+SiLU kernel."""
-    return group_norm_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+    """SiLU(``norm``(x)) through the fused GroupNorm+SiLU kernel, in the promoted dtype."""
+    return group_norm_silu(*_promote(x, norm.weight, norm.bias), norm.num_groups, norm.eps)
 
 
 def _group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
-    """``norm(x)``; ``torch.group_norm`` also takes a group of one element (see ``group_norm_silu_plain``)."""
-    return torch.group_norm(x, norm.num_groups, norm.weight, norm.bias, norm.eps)
+    """``norm(x)`` in the promoted dtype; ``torch.group_norm`` also takes a group of one element (see
+    ``group_norm_silu_plain``)."""
+    x, w, b = _promote(x, norm.weight, norm.bias)
+    return torch.group_norm(x, norm.num_groups, w, b, norm.eps)
 
 
 class Timesteps(nn.Module):
@@ -63,15 +103,15 @@ class Timesteps(nn.Module):
 
 
 class TimestepEmbedding(nn.Module):
-    """linear_1 -> SiLU -> linear_2, computed in the input's dtype (float32 from ``Timesteps``)."""
+    """linear_1 -> SiLU -> linear_2 (float32 from ``Timesteps``)."""
 
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.linear_1 = Linear(in_dim, dim)
+        self.linear_2 = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(F.silu(_linear(x, self.linear_1)), self.linear_2)
+        return self.linear_2(F.silu(self.linear_1(x)))
 
 
 class ResnetBlock2D(nn.Module):
@@ -81,13 +121,13 @@ class ResnetBlock2D(nn.Module):
                  temb_channels: int | None = None):
         super().__init__()
         self.norm1 = nn.GroupNorm(gn_groups(in_channels, groups), in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
-            self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+            self.time_emb_proj = Linear(temb_channels, out_channels)
         self.norm2 = nn.GroupNorm(gn_groups(out_channels, groups), out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None) -> torch.Tensor:
         h = self.conv1(gn_silu(x, self.norm1))
@@ -106,10 +146,10 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, out_dim)
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = Linear(inner, out_dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
         ctx = x if context is None else context
@@ -133,7 +173,7 @@ class GEGLU(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -144,7 +184,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net_0 = GEGLU(dim, dim * mult)
-        self.net_2 = nn.Linear(dim * mult, dim)
+        self.net_2 = Linear(dim * mult, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net_2(self.net_0(x))
@@ -156,11 +196,11 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, context_dim: int = 768):
         super().__init__()
         head_dim = dim // heads
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn1 = Attention(dim, heads, head_dim, dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.attn2 = Attention(dim, heads, head_dim, dim, context_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm3 = LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -175,11 +215,11 @@ class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, depth: int = 1, context_dim: int = 768):
         super().__init__()
         self.norm = nn.GroupNorm(gn_groups(channels), channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = Conv2d(channels, channels, 1)
         for i in range(depth):
             self.add_module(f"transformer_blocks_{i}", BasicTransformerBlock(channels, heads, context_dim))
         self.depth = depth
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -194,7 +234,7 @@ class Downsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -205,7 +245,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(nearest_up2(x))
@@ -217,10 +257,10 @@ class VAEAttention(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.group_norm = nn.GroupNorm(gn_groups(channels), channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.Linear(channels, channels)
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

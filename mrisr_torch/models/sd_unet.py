@@ -16,6 +16,7 @@ from torch import nn
 
 from mrisr_torch.device import resolve_device
 from mrisr_torch.models.sd_layers import (
+    Conv2d,
     Downsample2D,
     ResnetBlock2D,
     TimestepEmbedding,
@@ -142,7 +143,7 @@ def build_down_tower(module: nn.Module, in_channels: int, block_out_channels, la
     temb = ch[0] * 4
     module.time_proj = Timesteps(ch[0])
     module.time_embedding = TimestepEmbedding(ch[0], temb)
-    module.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
+    module.conv_in = Conv2d(in_channels, ch[0], 3, padding=1)
     prev = ch[0]
     for i, c in enumerate(ch):
         if i < len(ch) - 1:
@@ -190,7 +191,7 @@ class SDUNet(nn.Module):
                 self.add_module(f"up_blocks_{i}", block)
                 prev = c
             self.conv_norm_out = nn.GroupNorm(gn_groups(ch[0]), ch[0], eps=1e-5)
-            self.conv_out = nn.Conv2d(ch[0], out_channels, 3, padding=1)
+            self.conv_out = Conv2d(ch[0], out_channels, 3, padding=1)
         self.eval()
 
     def forward(

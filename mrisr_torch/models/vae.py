@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from mrisr_torch.device import resolve_device
-from mrisr_torch.models.sd_layers import Downsample2D, ResnetBlock2D, Upsample2D, VAEAttention, gn_groups, gn_silu
+from mrisr_torch.models.sd_layers import Conv2d, Downsample2D, ResnetBlock2D, Upsample2D, VAEAttention, gn_groups, gn_silu
 
 SD15_SCALING_FACTOR = 0.18215
 _VAE_EPS = 1e-6
@@ -70,14 +70,14 @@ class Encoder(nn.Module):
         super().__init__()
         ch = list(block_out_channels)
         self.stages = len(ch)
-        self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(in_channels, ch[0], 3, padding=1)
         prev = ch[0]
         for i, c in enumerate(ch):
             self.add_module(f"down_blocks_{i}", DownEncoderBlock(prev, c, layers_per_block, i != len(ch) - 1))
             prev = c
         self.mid_block = VAEMidBlock(ch[-1])
         self.conv_norm_out = nn.GroupNorm(gn_groups(ch[-1]), ch[-1], eps=_VAE_EPS)
-        self.conv_out = nn.Conv2d(ch[-1], 2 * latent_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[-1], 2 * latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_in(x)
@@ -93,14 +93,14 @@ class Decoder(nn.Module):
         super().__init__()
         ch = list(reversed(block_out_channels))  # (512, 512, 256, 128)
         self.stages = len(ch)
-        self.conv_in = nn.Conv2d(latent_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(latent_channels, ch[0], 3, padding=1)
         self.mid_block = VAEMidBlock(ch[0])
         prev = ch[0]
         for i, c in enumerate(ch):
             self.add_module(f"up_blocks_{i}", UpDecoderBlock(prev, c, layers_per_block, i != len(ch) - 1))
             prev = c
         self.conv_norm_out = nn.GroupNorm(gn_groups(ch[-1]), ch[-1], eps=_VAE_EPS)
-        self.conv_out = nn.Conv2d(ch[-1], out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[-1], out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = self.mid_block(self.conv_in(z))
@@ -126,8 +126,8 @@ class AutoencoderKL(nn.Module):
         with dev:
             self.encoder = Encoder(in_channels, block_out_channels, 2, latent_channels)
             self.decoder = Decoder(latent_channels, block_out_channels, 3, in_channels)
-            self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
-            self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
+            self.quant_conv = Conv2d(2 * latent_channels, 2 * latent_channels, 1)
+            self.post_quant_conv = Conv2d(latent_channels, latent_channels, 1)
         self.eval()
 
     def encode_moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

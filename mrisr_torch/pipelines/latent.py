@@ -19,6 +19,13 @@ buffers, so a graphed and an eager chain from the same generator agree
 bitwise.  ``cuda_graph=False``, and every CPU pipeline, run the chain
 eagerly.  The two encoder towers run one after the other (the reference's
 stacked-weight form, ``models/fused.py``, is not ported).
+
+Dtypes follow the reference's promotion: the VAE encoder, the condition
+embedding or adapter features and the prompt's projections run in their
+inputs' dtype (bf16 in a bf16 chain); the shifted start state is float32
+(the schedule's dtype), so every carry after it, the UNet and ControlNet
+steps and the VAE decoder compute in float32 against the modules' weights
+(bf16-rounded in a bf16 chain, upcast exactly).  The output is float32.
 """
 from __future__ import annotations
 
@@ -132,7 +139,7 @@ class LatentSRPipeline:
         cond = prepare_condition_image(lr, (h, w)).permute(0, 3, 1, 2).contiguous()  # [B, 3, H, W]
         sf = self.vae.scaling_factor
         anchor = self.vae.encode(cond, noise.vae) * sf
-        ctx = self.prompt_embeds[:1].to(lr.dtype).expand(b, *self.prompt_embeds.shape[1:])
+        ctx = self.prompt_embeds[:1].expand(b, *self.prompt_embeds.shape[1:])
         if self.adapter is not None:
             feats = self.adapter(cond)
 

@@ -121,7 +121,9 @@ class ResDiffPipeline:
             self._chain(static_lr, static_x, num_steps, spacing)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        # thread_local: a training loop's data thread may pin host memory meanwhile (validation), which is no
+        # work of the capture.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self._chain(static_lr, static_x, num_steps, spacing)
         graph.instantiate()
         return ChainGraph(graph, static_lr, static_x, out)

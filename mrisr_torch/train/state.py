@@ -3,10 +3,6 @@
 The reference builds its optimizer from optax pieces; the port holds to their
 semantics, which differ from the obvious torch ones in places:
 
-* an optimizer is a pair ``(init, update)`` of pure functions on
-  ``{name: tensor}`` dicts: ``update(grads, state, params) -> (updates,
-  new_state)`` changes nothing in place, so a rejected step leaves the old
-  state as it was;
 * ``grad_accum=k`` keeps the running *mean* of k micro-gradients, emits zero
   updates on the first k-1 calls and the inner update of the mean on the k-th;
 * ``max_grad_norm`` clips by the global norm *before* Adam;
@@ -15,6 +11,18 @@ semantics, which differ from the obvious torch ones in places:
 * ``TrainState.apply_gradients`` bumps ``step`` and updates the EMA on every
   call, micro-steps included;
 * an LR schedule is read at the number of updates made so far (0 first).
+
+An optimizer is ``(init, update, update_)``, one of the two updates given.
+``update_(grads, state, params, gate=None)`` updates the parameters and the
+optimizer state in place, with ``torch._foreach_*`` ops, and is what a CUDA
+graph captures: every count (Adam's step, the accumulation's micro-step, the
+non-finite streak) is a 0-d device tensor, the learning rate and the bias
+corrections are computed from them on the device, and every choice
+(accumulate or emit, apply or skip) is a ``torch.where`` over a 0-d boolean
+``gate``, never a Python branch on a device value.  ``make_optimizer``'s
+optimizers have only ``update_``.  A hand-made ``Optimizer(init, update)``,
+with ``update(grads, state, params) -> (updates, new_state)`` changing
+nothing in place, trains eagerly and cannot be captured.
 """
 from __future__ import annotations
 
@@ -28,29 +36,39 @@ from torch import nn
 from mrisr_torch.device import resolve_device
 
 Params = dict[str, torch.Tensor]
-Schedule = Callable[[int], float]
+Schedule = Callable[[int | torch.Tensor], float | torch.Tensor]
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Params], dict]
-    update: Callable[[Params, dict, Params], tuple[Params, dict]]
+    update: Callable[[Params, dict, Params], tuple[Params, dict]] | None = None
+    update_: Callable[..., None] | None = None
 
 
 # ---------------------------------------------------------------------------
-# LR schedules: plain functions of the step
+# LR schedules: functions of the number of updates made so far, a Python int (-> float) or a 0-d device
+# tensor (-> a 0-d float32 tensor, so a CUDA graph reads the schedule at every replay)
 # ---------------------------------------------------------------------------
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
-    def schedule(count: int) -> float:
-        frac = 1.0 - min(max(count, 0), steps) / steps
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            frac = 1.0 - count.clamp(0, steps).to(torch.float32) / steps
+        else:
+            frac = 1.0 - min(max(count, 0), steps) / steps
         return (init - end) * frac + end
 
     return schedule
 
 
 def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
-    return lambda count: first(count) if count < boundary else second(count - boundary)
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return torch.where(count < boundary, first(count), second(count - boundary))
+        return first(count) if count < boundary else second(count - boundary)
+
+    return schedule
 
 
 def make_lr_schedule(
@@ -68,7 +86,10 @@ def make_lr_schedule(
         warmup = max(warmup_steps, 1)
         decay_steps = max(total_steps, warmup + 1) - warmup
 
-        def cosine(count: int) -> float:
+        def cosine(count):
+            if isinstance(count, torch.Tensor):
+                frac = count.clamp(max=decay_steps).to(torch.float32) / decay_steps
+                return base_lr * 0.5 * (1.0 + torch.cos(math.pi * frac))
             return base_lr * 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
 
         return _join(_linear(0.0, base_lr, warmup), cosine, warmup)
@@ -82,8 +103,31 @@ def make_lr_schedule(
 
 
 # ---------------------------------------------------------------------------
-# Optimizer pieces
+# Optimizer pieces: in-place updates over lists of tensors, gated by a 0-d bool tensor
 # ---------------------------------------------------------------------------
+
+
+def _device(params: Params) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def _count(params: Params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=_device(params))
+
+
+def _and(gate: torch.Tensor | None, cond: torch.Tensor) -> torch.Tensor:
+    return cond if gate is None else gate & cond
+
+
+def _commit(dst: list[torch.Tensor], new: list[torch.Tensor], gate: torch.Tensor | None) -> None:
+    """``dst[i] = new[i]`` in place where ``gate`` holds (everywhere when it is None)."""
+    if gate is not None:
+        new = [torch.where(gate, n, d) for n, d in zip(new, dst)]
+    torch._foreach_copy_(dst, new)
+
+
+def _commit_one(dst: torch.Tensor, new: torch.Tensor, gate: torch.Tensor | None) -> None:
+    dst.copy_(new if gate is None else torch.where(gate, new, dst))
 
 
 def _adam(lr: float | Schedule, b1: float, b2: float, eps: float, weight_decay: float | None) -> Optimizer:
@@ -92,69 +136,83 @@ def _adam(lr: float | Schedule, b1: float, b2: float, eps: float, weight_decay: 
 
     def init(params: Params) -> dict:
         zeros = {k: torch.zeros_like(p) for k, p in params.items()}
-        return {"count": 0, "mu": zeros, "nu": {k: z.clone() for k, z in zeros.items()}}
+        return {"count": _count(params), "mu": zeros, "nu": {k: z.clone() for k, z in zeros.items()}}
 
-    def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
-        count = state["count"] + 1
-        mu = {k: b1 * state["mu"][k] + (1.0 - b1) * g for k, g in grads.items()}
-        nu = {k: b2 * state["nu"][k] + (1.0 - b2) * g * g for k, g in grads.items()}
-        c1, c2 = 1.0 - b1**count, 1.0 - b2**count
+    def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
+        keys = list(params)
+        g = [grads[k] for k in keys]
+        p = [params[k] for k in keys]
+        mu = [state["mu"][k] for k in keys]
+        nu = [state["nu"][k] for k in keys]
         step_lr = lr_at(state["count"])
-        updates = {}
-        for k in grads:
-            u = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
-            if weight_decay is not None:
-                u = u + weight_decay * params[k]
-            updates[k] = -step_lr * u
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        count = state["count"] + 1
+        c1 = 1.0 - b1 ** count.to(torch.float32)
+        c2 = 1.0 - b2 ** count.to(torch.float32)
+        new_mu = torch._foreach_mul(mu, b1)
+        torch._foreach_add_(new_mu, g, alpha=1.0 - b1)
+        new_nu = torch._foreach_mul(nu, b2)
+        torch._foreach_addcmul_(new_nu, g, g, value=1.0 - b2)
+        den = torch._foreach_div(new_nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        u = torch._foreach_div(torch._foreach_div(new_mu, c1), den)
+        if weight_decay is not None:
+            torch._foreach_add_(u, p, alpha=weight_decay)
+        torch._foreach_mul_(u, -step_lr)
+        _commit(mu, new_mu, gate)
+        _commit(nu, new_nu, gate)
+        _commit(p, torch._foreach_add(p, u), gate)
+        _commit_one(state["count"], count, gate)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_=update_)
 
 
 def _clip_by_global_norm(max_norm: float, inner: Optimizer) -> Optimizer:
-    def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
-        g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
-        # Unclipped below max_norm, else scaled to it (selected on the device: no host sync).
-        below = g_norm < max_norm
-        clipped = {k: torch.where(below, g, (g / g_norm.to(g.dtype)) * max_norm) for k, g in grads.items()}
-        return inner.update(clipped, state, params)
+    def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
+        keys = list(grads)
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm([grads[k].float() for k in keys])))
+        # Unclipped below max_norm, else scaled to it (selected on the device).
+        factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm), max_norm / g_norm)
+        clipped = torch._foreach_mul([grads[k] for k in keys], factor)
+        inner.update_(dict(zip(keys, clipped)), state, params, gate)
 
-    return Optimizer(inner.init, update)
+    return Optimizer(inner.init, update_=update_)
 
 
 def _apply_if_finite(inner: Optimizer, max_consecutive_errors: int) -> Optimizer:
     def init(params: Params) -> dict:
-        return {"notfinite_count": 0, "total_notfinite": 0, "inner": inner.init(params)}
+        return {"notfinite_count": _count(params), "total_notfinite": _count(params), "inner": inner.init(params)}
 
-    def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
-        count = 0 if finite else state["notfinite_count"] + 1
-        total = state["total_notfinite"] + (0 if finite else 1)
-        if finite or count > max_consecutive_errors:
-            updates, inner_state = inner.update(grads, state["inner"], params)
-        else:
-            updates, inner_state = {k: torch.zeros_like(g) for k, g in grads.items()}, state["inner"]
-        return updates, {"notfinite_count": count, "total_notfinite": total, "inner": inner_state}
+    def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
+        finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        count = torch.where(finite, torch.zeros_like(state["notfinite_count"]), state["notfinite_count"] + 1)
+        total = state["total_notfinite"] + (~finite).to(torch.int64)
+        inner.update_(grads, state["inner"], params, _and(gate, finite | (count > max_consecutive_errors)))
+        _commit_one(state["notfinite_count"], count, gate)
+        _commit_one(state["total_notfinite"], total, gate)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_=update_)
 
 
 def _multi_steps(inner: Optimizer, every_k: int) -> Optimizer:
     def init(params: Params) -> dict:
-        return {"mini_step": 0, "gradient_step": 0, "inner": inner.init(params),
+        return {"mini_step": _count(params), "gradient_step": _count(params), "inner": inner.init(params),
                 "acc_grads": {k: torch.zeros_like(p) for k, p in params.items()}}
 
-    def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
+    def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
+        keys = list(state["acc_grads"])
+        acc = [state["acc_grads"][k] for k in keys]
         n = state["mini_step"]
-        acc = {k: a + (grads[k] - a) / (n + 1) for k, a in state["acc_grads"].items()}
-        if n < every_k - 1:
-            zeros = {k: torch.zeros_like(g) for k, g in grads.items()}
-            return zeros, {**state, "mini_step": n + 1, "acc_grads": acc}
-        updates, inner_state = inner.update(acc, state["inner"], params)
-        return updates, {"mini_step": 0, "gradient_step": state["gradient_step"] + 1, "inner": inner_state,
-                         "acc_grads": {k: torch.zeros_like(a) for k, a in acc.items()}}
+        delta = torch._foreach_sub([grads[k] for k in keys], acc)
+        torch._foreach_div_(delta, (n + 1).to(torch.float32))
+        new_acc = torch._foreach_add(acc, delta)
+        emit = n == every_k - 1
+        inner.update_(dict(zip(keys, new_acc)), state["inner"], params, _and(gate, emit))
+        _commit(acc, [torch.where(emit, torch.zeros_like(a), a) for a in new_acc], gate)
+        _commit_one(state["mini_step"], torch.where(emit, torch.zeros_like(n), n + 1), gate)
+        _commit_one(state["gradient_step"], state["gradient_step"] + emit.to(torch.int64), gate)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_=update_)
 
 
 def make_optimizer(
@@ -192,13 +250,36 @@ def make_optimizer(
 # ---------------------------------------------------------------------------
 
 
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree
+
+
+def _copy_into(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (same structure), in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise KeyError(f"structure differs: {sorted(set(dst) ^ set(src))}")
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif dst != src:
+        raise ValueError(f"{dst!r} != {src!r}")
+
+
 @dataclass
 class TrainState:
     """fp32 master parameters by name, optimizer state, step count and the EMA.
 
-    ``apply_gradients`` returns a new state and leaves this one as it was.
-    The names are the module's, so ``module.load_state_dict(state.params)``
-    (or ``state.ema_params``) writes them back.
+    ``apply_gradients`` returns a new state and leaves this one as it was;
+    ``apply_gradients_`` updates this one in place (the form a CUDA graph
+    captures).  ``step`` is counted on the host.  The names are the
+    module's, so ``module.load_state_dict(state.params)`` (or
+    ``state.ema_params``) writes them back.
     """
 
     params: Params
@@ -208,14 +289,41 @@ class TrainState:
     ema_params: Params | None = None
     ema_decay: float = 0.0
 
+    def clone(self) -> "TrainState":
+        """A copy of every tensor; the optimizer is shared."""
+        return TrainState(_clone(self.params), self.tx, _clone(self.opt_state), self.step,
+                          _clone(self.ema_params), self.ema_decay)
+
+    def _ema_(self) -> None:
+        """``ema = d ema + (1 - d) params``, in place, as one lerp toward the parameters."""
+        if self.ema_params is not None:
+            keys = list(self.ema_params)
+            torch._foreach_lerp_([self.ema_params[k] for k in keys], [self.params[k] for k in keys],
+                                 1.0 - self.ema_decay)
+
+    def update_tensors_(self, grads: Params) -> None:
+        """Update the parameters, optimizer state and EMA in place: the device work of a step (what a CUDA
+        graph captures; ``step`` is left to the caller)."""
+        if self.tx.update_ is None:
+            raise TypeError("this optimizer has no in-place update (Optimizer.update_)")
+        self.tx.update_(grads, self.opt_state, self.params)
+        self._ema_()
+
+    def apply_gradients_(self, grads: Params) -> None:
+        """``update_tensors_`` and one more step."""
+        self.update_tensors_(grads)
+        self.step += 1
+
     def apply_gradients(self, grads: Params) -> "TrainState":
+        if self.tx.update_ is not None:
+            new = self.clone()
+            new.apply_gradients_(grads)
+            return new
         updates, opt_state = self.tx.update(grads, self.opt_state, self.params)
         params = {k: p + updates[k] for k, p in self.params.items()}
-        ema = self.ema_params
-        if ema is not None:
-            d = self.ema_decay
-            ema = {k: d * e + (1.0 - d) * params[k] for k, e in ema.items()}
-        return TrainState(params, self.tx, opt_state, self.step + 1, ema, self.ema_decay)
+        new = TrainState(params, self.tx, opt_state, self.step + 1, _clone(self.ema_params), self.ema_decay)
+        new._ema_()
+        return new
 
     def state_dict(self) -> dict:
         """What a checkpoint holds: tensors, ints and floats in plain dicts."""
@@ -230,6 +338,20 @@ class TrainState:
         tree = _to_device(tree, device)
         return TrainState(tree["params"], self.tx, tree["opt_state"], int(tree["step"]),
                           tree["ema_params"], float(tree["ema_decay"]))
+
+    def load_state_dict_(self, tree: dict) -> "TrainState":
+        """Copy ``tree``'s contents into this state's own tensors (a CUDA graph that captured them still sees
+        them) and return this state."""
+        if set(tree["params"]) != set(self.params):
+            raise KeyError("checkpoint parameters do not match the state's")
+        if (tree["ema_params"] is None) != (self.ema_params is None):
+            raise ValueError("checkpoint and state differ in having an EMA")
+        _copy_into(self.params, tree["params"])
+        _copy_into(self.opt_state, tree["opt_state"])
+        if self.ema_params is not None:
+            _copy_into(self.ema_params, tree["ema_params"])
+        self.step, self.ema_decay = int(tree["step"]), float(tree["ema_decay"])
+        return self
 
 
 def _to_device(tree, device):

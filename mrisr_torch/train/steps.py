@@ -5,6 +5,22 @@ draws=None) -> (state, {"loss": ...})``.  Batches are dicts of ``[B, H, W, 1]``
 images, as in the reference; the models run NCHW.  The MNIST and latent
 factories are not ported yet.
 
+On a CUDA device the step is one captured ``torch.cuda.CUDAGraph``
+(``cuda_graph=True``, the default): the random draws, the forward, the
+backward (through the flash-attention and GroupNorm+SiLU kernels) and the
+optimizer and EMA updates in place.  The first call warms the step up twice
+on a copy of the state on a side stream (cuDNN, cuFFT and the kernels'
+one-time set-up happen there), then captures it; every call copies the batch
+into the graph's static inputs, puts the caller's generator state into the
+generator registered with the graph, replays, and hands the advanced state
+back to the caller's generator, so a replay draws what the eager step draws.
+A graphed step updates ``state`` in place and returns that same object; it
+is bound to the state it captured (and to one batch shape) and raises on
+another, or on ``draws``.  Its loss is a fresh tensor each call.  The eager
+step (CPU, or ``cuda_graph=False``) returns a new state and leaves the one it
+was given as it was.  A step the graph cannot capture raises; nothing falls
+back to the eager step.
+
 Random draws.  The reference splits one PRNG key four ways; here one
 ``torch.Generator`` (on the batch's device) feeds, in this order: ``t``
 (``randint(0, T)``, ``[B]``), the uniform behind ``gamma`` (``[B]``), ``eps``
@@ -59,19 +75,118 @@ def _prepare(model: nn.Module, device: str | torch.device) -> torch.device:
     return dev
 
 
-def make_cnn_train_step(model: nn.Module, policy: Policy | None = None, device: str | torch.device = "cuda"):
+def _advanced(gen_state: torch.Tensor, by: int) -> torch.Tensor:
+    """A CUDA generator state (seed, Philox offset: two 64-bit words) with its offset moved on by ``by``."""
+    state = gen_state.clone()
+    state.view(torch.int64)[1] += by
+    return state
+
+
+class GraphedStep:
+    """One training step captured as a CUDA graph and replayed (see the module docstring).
+
+    ``body(state, inputs, generator, regen)`` runs one step in place on
+    ``state`` from the NCHW ``inputs`` and returns the loss; ``regen`` is the
+    second registered generator a remat step recomputes its forward with
+    (None otherwise).  ``keys`` names the batch entries copied in.
+    """
+
+    def __init__(self, body, device: torch.device, keys: tuple[str, ...], random: bool, remat: bool = False,
+                 probe=None):
+        self.body, self.device, self.keys = body, device, keys
+        self.random, self.remat, self.probe = random, remat, probe
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.state: TrainState | None = None
+        self.inputs: dict[str, torch.Tensor] = {}
+        self.gens: list[torch.Generator] = []
+        self.regen_offset = 0
+        self.loss: torch.Tensor | None = None
+
+    def _capture(self, state: TrainState, inputs: dict, generator) -> None:
+        self.inputs = {k: v.clone() for k, v in inputs.items()}
+        self.gens = [torch.Generator(device=self.device) for _ in range(2 if self.remat else 1)] if self.random else []
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            warm = state.clone()
+            for _ in range(2):
+                gen = None
+                if self.random:
+                    gen = torch.Generator(device=self.device)
+                    gen.set_state(generator.get_state())
+                    start = gen.get_state()
+                    if self.remat:
+                        self.regen_offset = self.probe(start, gen)
+                        gen.set_state(start)
+                self.body(warm, self.inputs, gen, None)
+            del warm
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in self.gens:
+            graph.register_generator_state(gen)
+        gen, regen = (self.gens + [None, None])[:2]
+        # thread_local: the loader's thread may pin host memory meanwhile, which is no work of the capture.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.loss = self.body(state, self.inputs, gen, regen)
+        graph.instantiate()
+        self.graph, self.state = graph, state
+
+    def __call__(self, state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
+        if draws:
+            raise ValueError("a graphed step draws its own t, gamma and eps; use cuda_graph=False to pass draws")
+        if self.random and (generator is None or generator.device.type != "cuda"):
+            raise ValueError("a graphed step needs a CUDA torch.Generator")
+        inputs = {k: _nchw(batch[k]) for k in self.keys}
+        if self.graph is None:
+            self._capture(state, {k: v.to(self.device) for k, v in inputs.items()}, generator)
+        elif state is not self.state:
+            raise ValueError("this graphed step is bound to the state it captured; pass that state "
+                             "(restore a checkpoint into it with CheckpointManager.restore(..., in_place=True))")
+        for k, v in inputs.items():
+            static = self.inputs[k]
+            if v.shape != static.shape:
+                raise ValueError(f"a graphed step takes one batch shape: {k} is {tuple(v.shape)}, "
+                                 f"captured {tuple(static.shape)}")
+            static.copy_(v, non_blocking=True)
+        if self.random:
+            start = generator.get_state()
+            self.gens[0].set_state(start)
+            if self.remat:
+                self.gens[1].set_state(_advanced(start, self.regen_offset))
+        self.graph.replay()
+        if self.random:
+            generator.set_state(self.gens[0].get_state())
+        state.step += 1
+        return state, {"loss": self.loss.clone()}
+
+
+def _graphed(device: torch.device, cuda_graph: bool) -> bool:
+    return cuda_graph and device.type == "cuda"
+
+
+def make_cnn_train_step(model: nn.Module, policy: Policy | None = None, device: str | torch.device = "cuda",
+                        cuda_graph: bool = True):
     """Stage 1: image-compare loss of ``model(lr)`` against HR.  Puts ``model`` in training mode."""
     policy = policy or Policy()
-    _prepare(model, device)
+    dev = _prepare(model, device)
 
-    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
-        lr, hr = _nchw(batch["lr"]), _nchw(batch["hr"])
-
+    def loss_and_grads(params, lr, hr):
         def loss_fn(params):
             pred = functional_call(model, policy.cast_to_compute(params), (policy.cast_to_compute(lr),))
             return image_compare_loss(pred.float(), hr.float())
 
-        loss, grads = _value_and_grad(loss_fn, state.params)
+        return _value_and_grad(loss_fn, params)
+
+    if _graphed(dev, cuda_graph):
+        def body(state, inputs, generator, regen):
+            loss, grads = loss_and_grads(state.params, inputs["lr"], inputs["hr"])
+            state.update_tensors_(grads)
+            return loss
+
+        return GraphedStep(body, dev, ("lr", "hr"), random=False)
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
+        loss, grads = loss_and_grads(state.params, _nchw(batch["lr"]), _nchw(batch["hr"]))
         return state.apply_gradients(grads), {"loss": loss}
 
     return step
@@ -83,6 +198,7 @@ def make_resdiff_train_step(
     policy: Policy | None = None,
     remat: bool = False,
     device: str | torch.device = "cuda",
+    cuda_graph: bool = True,
 ):
     """Stage 2: diffuse the residual ``hr - sr``, predict eps, MSE.
 
@@ -90,28 +206,35 @@ def make_resdiff_train_step(
     UNet forward and backward run in bfloat16 against the fp32 master
     parameters; the q-sample and the loss stay fp32.  ``remat=True`` recomputes
     the UNet forward in the backward pass instead of keeping its activations;
-    the recomputation sees the dropout masks of the first pass, because the
-    generator is put back to its state from before the forward.
+    the recomputation sees the dropout masks of the first pass: the eager step
+    puts the generator back to its state from before the forward, and a graphed
+    step recomputes from a second registered generator set to that state (its
+    Philox offset measured in the warm-up), since a generator's state cannot be
+    set inside a capture.
     """
     policy = policy or Policy()
     dev = _prepare(unet, device)
     sched = sched.to(dev)
 
-    def apply_unet(params, inp, gamma, generator):
+    def apply_unet(params, inp, gamma, generator, regen):
         if not remat:
             return functional_call(unet, params, (inp, gamma), {"generator": generator})
-        before = None if generator is None else generator.get_state()
+        before = None if generator is None or regen is not None else generator.get_state()
+        calls = []
 
         def forward(inp, gamma, *values):
-            if generator is not None:
+            gen = generator
+            if calls and regen is not None:  # the recomputation of a graphed step
+                gen = regen
+            elif before is not None:
                 generator.set_state(before)
-            return functional_call(unet, dict(zip(params, values)), (inp, gamma), {"generator": generator})
+            calls.append(1)
+            return functional_call(unet, dict(zip(params, values)), (inp, gamma), {"generator": gen})
 
         return checkpoint(forward, inp, gamma, *params.values(), use_reentrant=False, preserve_rng_state=False)
 
-    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
-        draws = draws or {}
-        sr, hr = _nchw(batch["sr"]), _nchw(batch["hr"])
+    def draw(sr, hr, generator, draws, probe=None):
+        """``(x_t input, gamma, eps)``; ``probe(generator)`` runs after the draws, before the UNet's."""
         b = hr.shape[0]
         if "gamma" in draws:
             gamma = draws["gamma"]
@@ -121,13 +244,34 @@ def make_resdiff_train_step(
         eps = draws["eps"] if "eps" in draws else torch.randn(
             hr.shape, generator=generator, device=hr.device, dtype=hr.dtype)
         x_t = sr3.q_sample_gamma(hr - sr, gamma, eps)
-        inp = policy.cast_to_compute(torch.cat([sr, x_t], dim=1))
+        return policy.cast_to_compute(torch.cat([sr, x_t], dim=1)), gamma, eps
+
+    def loss_and_grads(params, sr, hr, generator, draws, regen=None):
+        inp, gamma, eps = draw(sr, hr, generator, draws)
 
         def loss_fn(params):
-            eps_pred = apply_unet(policy.cast_to_compute(params), inp, gamma, generator)
+            eps_pred = apply_unet(policy.cast_to_compute(params), inp, gamma, generator, regen)
             return l2(eps_pred.float(), eps.float())
 
-        loss, grads = _value_and_grad(loss_fn, state.params)
+        return _value_and_grad(loss_fn, params)
+
+    if _graphed(dev, cuda_graph):
+        def body(state, inputs, generator, regen):
+            loss, grads = loss_and_grads(state.params, inputs["sr"], inputs["hr"], generator, {}, regen)
+            state.update_tensors_(grads)
+            return loss
+
+        def probe(start, generator):
+            """The Philox offset the step's draws of t, gamma and eps take (the UNet's draws start there)."""
+            with torch.no_grad():
+                draw(graphed_step.inputs["sr"], graphed_step.inputs["hr"], generator, {})
+            return int(generator.get_state().view(torch.int64)[1] - start.view(torch.int64)[1])
+
+        graphed_step = GraphedStep(body, dev, ("sr", "hr"), random=True, remat=remat, probe=probe)
+        return graphed_step
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
+        loss, grads = loss_and_grads(state.params, _nchw(batch["sr"]), _nchw(batch["hr"]), generator, draws or {})
         return state.apply_gradients(grads), {"loss": loss}
 
     return step
@@ -145,9 +289,9 @@ def make_resdiff_train_many(
     Step ``i`` trains on ``(sr_all[idx[i]], hr_all[idx[i]])`` with
     ``step_generator(seed, step_ids[i], device)``, so a call reproduces the
     per-step loop that derives its generators the same way.  (The reference
-    scans the steps inside one compiled program to spare dispatches; eager
-    PyTorch has none to spare, so this is a plain loop.)  Returns
-    ``(state, losses [K])``.
+    scans the steps inside one compiled program; here each step is one graph
+    replay on a card, or one eager step.)  Returns ``(state, losses [K])``;
+    on a card ``state`` is the one given, updated in place.
     """
     step = make_resdiff_train_step(unet, sched, policy, remat, device)
 

@@ -39,13 +39,20 @@ class CheckpointManager:
                 self._path(old).unlink()
         return True
 
-    def restore(self, state_template: TrainState, step: int | None = None) -> TrainState:
-        """The saved state (the latest when ``step`` is None), on the template's device."""
+    def restore(self, state_template: TrainState, step: int | None = None, in_place: bool = False) -> TrainState:
+        """The saved state (the latest when ``step`` is None), on the template's device.
+
+        ``in_place=True`` copies it into the template's own tensors and returns
+        the template, so a CUDA graph that captured them (a graphed train
+        step) goes on from the restored values.
+        """
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         tree = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        if in_place:
+            return state_template.load_state_dict_(tree)
         return state_template.load_state_dict(tree)
 
     def latest_step(self) -> int | None:

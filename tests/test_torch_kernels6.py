@@ -25,6 +25,7 @@ import torch
 from mrisr_tpu.ops.flash_attention import _flash_backward, _flash_fwd_impl
 from mrisr_torch.ops import flash_attention as t_flash
 from mrisr_torch.ops import groupnorm as t_gn
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "mrisr_torch" / "csrc"

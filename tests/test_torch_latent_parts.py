@@ -37,6 +37,7 @@ from mrisr_torch.models import tokenizer as t_tok
 from mrisr_torch.models import vae as t_vae
 from mrisr_torch.pipelines import sampler as t_sampler
 from mrisr_torch.weights import load_flax_params
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 TOL = dict(atol=2e-4, rtol=1e-3)
 TINY = dict(block_out_channels=(8, 16, 16, 16), heads=2, context_dim=16)

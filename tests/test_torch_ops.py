@@ -41,6 +41,19 @@ SCHEDULE_FIELDS = (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one thread while a port test file runs (every ``test_torch_*`` file imports this fixture).
+
+    The suite runs six workers on eight cores beside XLA's own thread pools;
+    torch's default of one thread per core then spends most of a small op
+    waiting for threads that are not running."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
@@ -575,6 +588,10 @@ def test_port_imports_no_jax():
     latent = {f"mrisr_torch/models/{m}.py" for m in ("sd_layers", "sd_unet", "controlnet", "vae", "adapter", "lora",
                                                      "tokenizer", "clip_text", "convert")}
     assert latent | {"mrisr_torch/diffusion/res_shift.py", "mrisr_torch/pipelines/latent.py"} <= names
+    cli = {"mrisr_torch/cli.py", "mrisr_torch/config.py", "mrisr_torch/ops/resize.py", "mrisr_torch/train/validation.py",
+           "mrisr_torch/utils/logging.py", "mrisr_torch/utils/profiling.py"}
+    data = {f"mrisr_torch/data/{m}.py" for m in ("degrade", "dicom", "datasets", "loader", "slicecache")}
+    assert cli | data <= names
     for path in files:
         bad = _imports(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -27,6 +27,7 @@ from mrisr_torch.pipelines import sampler as t_sampler
 from mrisr_torch.pipelines.resdiff import ResDiffPipeline
 from mrisr_torch.weights import load_flax_params
 from test_torch_resdiff import flax_random_params
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 SIZE = 32
 TINY = dict(image_size=SIZE, inner_channel=8, norm_groups=4)

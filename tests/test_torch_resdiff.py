@@ -25,6 +25,7 @@ from mrisr_torch.models.resdiff_unet import FDInfoSpliter as TFD
 from mrisr_torch.models.resdiff_unet import ResDiffUNet as TUNet
 from mrisr_torch.models.simple_cnn import SimpleCNN as TCNN
 from mrisr_torch.weights import load_flax_params
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 REPO = Path(__file__).resolve().parent.parent
 

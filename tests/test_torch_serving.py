@@ -37,6 +37,7 @@ from mrisr_torch.pipelines.resdiff import ResDiffPipeline
 from mrisr_torch.utils.flax_msgpack import read_msgpack
 from mrisr_torch.weights import load_flax_checkpoint, load_flax_params
 from test_torch_resdiff import flax_random_params, to_numpy, to_torch
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "ckpt_256_r3.msgpack"

@@ -42,6 +42,7 @@ from mrisr_torch.utils.checkpoint import CheckpointManager
 from mrisr_torch.weights import load_flax_params
 from test_torch_ops import _chip_smoke
 from test_torch_resdiff import flax_random_params, to_torch
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 TINY = dict(image_size=16, inner_channel=8, norm_groups=4)
 T = 100
@@ -268,6 +269,75 @@ def test_lr_schedule_matches_optax(name, warmup, total):
     st = t_state.make_lr_schedule(name, 3e-4, warmup, total)
     for step in (0, 1, 2, 3, 4, 7, 11, 12, 40):
         np.testing.assert_allclose(st(step), float(sj(step)), rtol=1e-6, atol=1e-12, err_msg=f"step {step}")
+
+
+@pytest.mark.parametrize("case", sorted(OPT_CASES))
+def test_in_place_optimizer_is_the_functional_one_and_keeps_its_tensors(case):
+    """``apply_gradients_`` (the form a CUDA graph captures) over five calls: every tensor of the state is
+    updated where it lies (a graph that captured them sees the new values), the parameters move, and every
+    count is a 0-d int64 tensor, as optax's are.  Its values are held to optax by
+    ``test_optimizer_and_ema_match_optax`` (``apply_gradients`` is ``apply_gradients_`` on a copy)."""
+    kw = OPT_CASES[case]
+    lr = t_state.make_lr_schedule("cosine", 1e-2, warmup_steps=2, total_steps=6) if case == "cosine_schedule" else 1e-2
+    tx = t_state.make_optimizer(lr, **kw)
+    assert tx.update is None and tx.update_ is not None
+    p0 = {"a": torch.from_numpy(_x(3, 4, seed=50)), "b": torch.from_numpy(_x(5, seed=51))}
+    in_place = t_state.TrainState({k: v.clone() for k, v in p0.items()}, tx, tx.init(p0), 0,
+                                  {k: v.clone() for k, v in p0.items()}, 0.9)
+    ptrs = [t.data_ptr() for t in _flat(in_place)]
+    for call in range(5):
+        g = {"a": torch.from_numpy(_x(3, 4, seed=60 + 10 * call)), "b": torch.from_numpy(_x(5, seed=61 + 10 * call))}
+        if case == "skip_nonfinite" and call == 2:
+            g["b"][1] = float("nan")
+        in_place.apply_gradients_(g)
+        assert in_place.step == call + 1
+    assert [t.data_ptr() for t in _flat(in_place)] == ptrs
+    assert not all(torch.equal(in_place.params[k], p) for k, p in p0.items())
+    counts = [v for k, v in _items(in_place.opt_state) if k in ("count", "mini_step", "gradient_step",
+                                                                "notfinite_count", "total_notfinite")]
+    assert counts and all(c.dtype == torch.int64 and c.ndim == 0 for c in counts)
+
+
+def _items(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _items(v)
+        else:
+            yield k, v
+
+
+def _flat(state):
+    return [v for _, v in _items({"p": state.params, "o": state.opt_state, "e": state.ema_params})]
+
+
+def test_lr_schedules_read_on_the_device_match_the_host():
+    """A schedule given a 0-d count tensor (how the graphed optimizer reads it) gives the host's value."""
+    for name, warmup, total in (("constant", 4, 10), ("cosine", 3, 12), ("linear", 3, 12), ("constant", 0, 5)):
+        sched = t_state.make_lr_schedule(name, 3e-4, warmup, total)
+        for step in (0, 1, 3, 7, 12, 40):
+            got = sched(torch.tensor(step))
+            np.testing.assert_allclose(float(got), sched(step), rtol=1e-6, atol=1e-12, err_msg=f"{name} {step}")
+
+
+def test_restore_in_place_copies_into_the_states_tensors(tmp_path, dropout_run):
+    """``CheckpointManager.restore(state, in_place=True)``: the saved values land in the template's own
+    tensors (the ones a graphed step captured), and it returns the template; a checkpoint of another
+    structure is refused."""
+    unet, sched = dropout_run["unet"], dropout_run["sched"]
+    batch = {"sr": dropout_run["sr_all"][:2], "hr": dropout_run["hr_all"][:2]}
+    tx = t_state.make_optimizer(LR, grad_accum=2)
+    step = t_steps.make_resdiff_train_step(unet, sched, device="cpu", cuda_graph=True)  # eager on the CPU
+    state, _ = step(dropout_run["fresh_state"](tx), batch, t_steps.step_generator(4, 0, "cpu"))
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    mgr.save(state.step, state)
+    template = dropout_run["fresh_state"](tx)
+    ptrs = [t.data_ptr() for t in _flat(template)]
+    back = mgr.restore(template, in_place=True)
+    assert back is template and back.step == 1 and [t.data_ptr() for t in _flat(back)] == ptrs
+    for a, b in zip(_flat(back), _flat(state), strict=True):
+        assert torch.equal(a, b)
+    with pytest.raises(KeyError):
+        mgr.restore(dropout_run["fresh_state"](t_state.make_optimizer(LR)), in_place=True)
 
 
 def test_unported_optimizer_and_unknown_names_raise():
