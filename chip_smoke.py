@@ -63,12 +63,24 @@ result.  Each phase prints JSON lines:
    1e-4 of rms(ref)); B3 at every head shape of the 512^2 chain (collected
    from the modules while the eager chain runs) and B1 at the SD route (64 x
    16384^2, D=40 padded to 64), both dtypes, against their plain versions,
-   timed beside their bounds and one library call;
-9. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
+   timed beside their bounds and one library call (the kernel phase adds B2a
+   and B2b there, fp32, 8 x 16384^2);
+9. ``latent_train``: the latent family's training steps
+   (``mrisr_torch/train/latent.py``) at SD1.5's widths, fp32 weights and
+   states: ControlNet+LoRA at 256^2, bs 2, from pixels, graphed against eager
+   over 3 steps (bitwise under deterministic cuDNN), and ControlNet mode at
+   1024^2, bs 1, from cached latents, graphed; ms a step, peak memory, ten
+   traced replays each, their launches from the graph's kernel nodes held to
+   what the modules give (B3 107 and 65 a step; B1 7, B2a 5, B2b 5 at 1024^2);
+   B3 in fp32 against its plain version at every head shape the two steps
+   gave it; one ControlNet step's gradients at 576^2 against the CPU's plain
+   path; and ``train-latent`` in this process at 256^2, bs 2, traced whole:
+   ControlNet mode for 30 steps, the LoRA and adapter modes for 2 each;
+10. ``forward``: one full-width bs-1 fp32 UNet forward on the card (TF32 off)
    against the plain path on the CPU, and the same for the reference's
    parity-harness UNet (128^2, inner 16, 8 norm groups), whose 64^2
    cross-attention has heads of D=16 (padded to 32);
-10. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
+11. ``train``: full-width training steps (256^2, bs 8, dropout 0.2, Adam 1e-5,
    EMA 0.999) through ``make_resdiff_train_step`` in fp32, bf16 and bf16 with
    remat: the graphed step (one CUDA graph a step) against the eager step, 3
    steps each from one state and the same generators (losses, parameters,
@@ -77,23 +89,23 @@ result.  Each phase prints JSON lines:
    memory; the graph's kernel nodes (2 / 2 / 2 / 29 a step; remat 4 / 2 / 2
    / 58) and one traced replay and one traced eager step of each policy
    (``train_profile``: wall, busy and idle share side by side);
-11. ``cli``: ``python -m mrisr_torch.cli`` in this process at 256^2, bs 8:
+12. ``cli``: ``python -m mrisr_torch.cli`` in this process at 256^2, bs 8:
    ``train-cnn``, ``train-resdiff`` (bf16, 30 steps, validation through the
    graphed pipeline on the EMA weights) and ``--resume`` (5 more),
    ``build-cache`` and ``train-resdiff --cache``, ``sr-volume`` on a
    220x220x40 NIfTI with the checkpoint just written; each trainer's steps/s,
    batch-making and waiting time against the step's device time; one traced
    replay of the trainer's step and of the volume's chain (their launches);
-12. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
+13. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
    dropout 0, kernels on) against the CPU plain path, per parameter; and
    the same for the parity-harness UNet;
-13. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
+14. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
    ``--pipeline latent``) in a subprocess, its JSON line echoed.
 
-Each main path (chain, checkpoint, volume, ddpm, latent, train, cli) is driven with
+Each main path (chain, checkpoint, volume, ddpm, latent, latent_train, train, cli) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  A
 replayed CUDA graph calls no wrapper: a graphed path (chain, checkpoint,
-volume, latent, train, cli) is traced, its wrappers' counts must stay 0, and its
+volume, latent, latent_train, train, cli) is traced, its wrappers' counts must stay 0, and its
 launches are the captured graph's kernel nodes times the graph launches in the
 trace, held equal to what the path must launch (``replayed``).
 Then the kernels summary line, the nvidia-smi line, and last the result line.
@@ -465,10 +477,12 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
         # Each input read once, each output written once; three products for dQ, four for dK/dV.
         set_bounds(dq_rec, (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, bf16)
         set_bounds(dkv_rec, (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, bf16)
-        # fp32: the kernels alone, on 3xTF32 operands made once; the pair below makes its own.
-        parts = None if bf16 else fa.tf32_parts(q, k, v, do)
-        run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, parts)  # noqa: E731
-        run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, parts)  # noqa: E731
+        # The kernels alone, on heads zero-padded to the kernels' width as the pair pads them (D=40 -> 64);
+        # fp32 on 3xTF32 operands made once (the pair makes its own).  The bounds count the unpadded work.
+        qp, kp, vp, dop = (fa._pad_head_dim(t, fa.kernel_head_dim(d)) for t in (q, k, v, do))
+        parts = None if bf16 else fa.tf32_parts(qp, kp, vp, dop)
+        run_dq = lambda: fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta, scale, parts)  # noqa: E731
+        run_dkv = lambda: fa.flash_attention_bwd_dkv(qp, kp, vp, dop, lse, delta, scale, parts)  # noqa: E731
         for rec, run, kernel_part in ((dq_rec, run_dq, "flash_bwd_dq"), (dkv_rec, run_dkv, "flash_bwd_dkv")):
             rec["ms"] = cuda_ms(torch, run)
             rec["device_ms"] = device_ms(torch, run, kernel_part)
@@ -486,7 +500,7 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
                 "plain_ms": plain_ms, "library_ms": cuda_ms(torch, run_library, max_iters=10),
                 "library_device_ms": device_ms(torch, run_library, None, iters=10)}
         if not bf16:  # the 3xTF32 operands' device time, part of the pair's
-            pair["prep_device_ms"] = device_ms(torch, lambda: fa.tf32_parts(q, k, v, do), None)
+            pair["prep_device_ms"] = device_ms(torch, lambda: fa.tf32_parts(qp, kp, vp, dop), None)
         for rec in (dq_rec, dkv_rec):
             rec.update(exp_floor_ms=b * n * m / PEAK_EXPS * 1e3, **pair,
                        plain_and_library_cover="dq, dk and dv together")
@@ -641,6 +655,9 @@ def phase_kernels(torch):
             recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=True, backward=i < 2))
         for case in GN_RAGGED:
             recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=False))
+    # The backward on the SD route (the latent training step at 1024^2), fp32 as the step runs it.
+    for name, rec in check_flash_bwd(torch, F, torch.float32, *FLASH_SD_BWD, timed=True).items():
+        recs[name].append(rec)
     check_flash_autograd(torch)
     check_captured(torch)
     return recs
@@ -1119,9 +1136,23 @@ def phase_ddpm(torch):
 BENCH_RUNS = (["--fast", "8"], ["--fast", "0"], ["--pipeline", "latent", "--repeats", "1"])
 
 
-def phase_bench():
+def release_memory(torch, after):
+    """Collect Python garbage (graphs, modules and states held in reference cycles) and release the caching
+    allocator's unused blocks (``empty_cache``); emit what this process still holds."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": "memory", "after": after, "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+          "reserved_gib": torch.cuda.memory_reserved() / 2**30})
+
+
+def phase_bench(torch):
     """``python3 -m mrisr_torch.bench`` in a subprocess per profile (and the latent chain); its JSON line
-    echoed."""
+    echoed.  The subprocesses share the card with this process, which first gives back the memory it
+    caches."""
+    release_memory(torch, "the phases before bench")
     for extra in BENCH_RUNS:
         proc = subprocess.run([sys.executable, "-m", "mrisr_torch.bench", *extra], capture_output=True, text=True,
                               timeout=600)
@@ -1542,6 +1573,8 @@ LATENT_STATED = {("controlnet", 512): (1350, 0), ("controlnet", 1024): (1350, 14
 LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 1024, 1e-4
 # B1 at the SD route: 8 images x 8 heads at 128^2 latents, D = 40 (the wrapper pads it to 64).
 FLASH_SD = ("sd_route", 64, 16384, 16384, 40)
+# B2a/B2b at the SD route, as a 1024^2 latent training step runs them: one image's 8 heads, fp32.
+FLASH_SD_BWD = ("sd_route", 8, 16384, 16384, 40)
 
 
 def latent_modules(torch, dtype, seed=10):
@@ -1566,32 +1599,40 @@ def latent_modules(torch, dtype, seed=10):
     return unet.to(dtype), cn.to(dtype), vae.to(dtype)
 
 
+def gn_heads(m):
+    """B3 launches of one forward of an SD module: two a ResnetBlock2D (its ``conv_norm_out`` not counted)."""
+    from mrisr_torch.models.sd_layers import ResnetBlock2D
+
+    return 2 * sum(isinstance(x, ResnetBlock2D) for x in m.modules())
+
+
+def flash_sites(m, size):
+    """The Transformer2Ds of an SD module whose self-attention sees more than 4096 keys at ``size``^2 pixels
+    (B1 in the forward), by name; a block's level from its name: ``down_blocks_i`` i, ``up_blocks_j``
+    n-1-j, the mid block n-1."""
+    from mrisr_torch.models.sd_layers import DENSE_MAX_KEYS, Transformer2D
+
+    n = len(m.block_out_channels)
+    sites = []
+    for name, x in m.named_modules():
+        if isinstance(x, Transformer2D):
+            top = name.split(".")[0]
+            level = (int(top.rsplit("_", 1)[1]) if top.startswith("down_blocks_")
+                     else n - 1 - int(top.rsplit("_", 1)[1]) if top.startswith("up_blocks_") else n - 1)
+            if ((size // 8) >> level) ** 2 > DENSE_MAX_KEYS:
+                sites.append(name)
+    return sites
+
+
 def latent_expect(pipe, size, steps):
     """The launches of one chain, counted from the modules: two B3 heads a ResnetBlock2D and one a
     ``conv_norm_out`` (UNet and ControlNet every step, VAE once); one B1 a Transformer2D whose self-attention
-    sees more than 4096 keys (a block's level from its name: ``down_blocks_i`` i, ``up_blocks_j`` n-1-j, the
-    mid block n-1)."""
-    from mrisr_torch.models.sd_layers import DENSE_MAX_KEYS, ResnetBlock2D, Transformer2D
-
-    def heads(m):
-        return 2 * sum(isinstance(x, ResnetBlock2D) for x in m.modules())
-
-    def flash_sites(m):
-        n = len(m.block_out_channels)
-        count = 0
-        for name, x in m.named_modules():
-            if isinstance(x, Transformer2D):
-                top = name.split(".")[0]
-                level = (int(top.rsplit("_", 1)[1]) if top.startswith("down_blocks_")
-                         else n - 1 - int(top.rsplit("_", 1)[1]) if top.startswith("up_blocks_") else n - 1)
-                count += ((size // 8) >> level) ** 2 > DENSE_MAX_KEYS
-        return count
-
+    sees more than 4096 keys (``flash_sites``)."""
     towers = [pipe.unet] + ([] if pipe.controlnet is None else [pipe.controlnet])
-    per_step = heads(pipe.unet) + 1 + (0 if pipe.controlnet is None else heads(pipe.controlnet))
-    vae = heads(pipe.vae.encoder) + 1 + heads(pipe.vae.decoder) + 1
-    return {"flash_attention_fwd": steps * sum(flash_sites(m) for m in towers), "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0, "group_norm_silu": steps * per_step + vae}
+    per_step = gn_heads(pipe.unet) + 1 + (0 if pipe.controlnet is None else gn_heads(pipe.controlnet))
+    vae = gn_heads(pipe.vae.encoder) + 1 + gn_heads(pipe.vae.decoder) + 1
+    return {"flash_attention_fwd": steps * sum(len(flash_sites(m, size)) for m in towers),
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "group_norm_silu": steps * per_step + vae}
 
 
 def recording_heads(torch, run):
@@ -1773,6 +1814,262 @@ def phase_latent(torch):
     return totals
 
 
+LT_STEPS, LT_LR, LT_LORA_RANK, LT_CFG = 3, 1e-5, 4, 0.1
+# (mode, condition size, batch, cached latents): the reference notebook's ControlNet+LoRA at 256^2 from
+# pixels, and ControlNet mode at 1024^2 (128^2 latents: B1/B2 at the level-0 self-attentions) from cached
+# latents.  What the modules give a step: B3 107 at 256^2 (UNet 22 ResnetBlock2D x 2 + conv_norm_out,
+# ControlNet 10 x 2, two VAE encodes of 10 x 2 + 1), 65 from cached latents; B1 7 at 1024^2 (UNet 2 + 3,
+# ControlNet 2); B2a/B2b 5 in ControlNet mode (ControlNet 2, UNet up block 3: its down blocks need no
+# backward), 7 with LoRA.
+LT_CASES = (("cn_lora", 256, 2, False), ("controlnet", 1024, 1, True))
+LT_STATED = {("cn_lora", 256, False): (107, 0, 0), ("controlnet", 1024, True): (65, 7, 5),
+             ("controlnet", 256, False): (107, 0, 0), ("controlnet", 576, True): (65, 7, 5)}
+# One ControlNet step's gradients, card (kernels, TF32 off) against the CPU's plain path, at the smallest size
+# above 512^2 (72^2 latents: 5184 keys, B1/B2 at level 0; 1024^2 takes minutes on the host); per parameter
+# ||g_gpu - g_cpu|| <= GRAD_TOL ||g_cpu||, the loss within 1e-4.
+LT_GRAD_SIZE = 576
+# ``train-latent`` at 256^2, bs 2, traced whole: ControlNet mode for a throughput reading (as phase ``cli``
+# runs ``train-resdiff``), the LoRA and adapter modes for two steps each (captured and replayed).
+LT_CLI_RUNS = (("controlnet", 30), ("lora", 2), ("adapter", 2))
+# Replays in a traced window.  The tracer can lose the first ~20 records of a window (a whole run lost 20 of a
+# 256^2 step's 6307, 4 of them B3, in each of three traces): one replay of a 107-launch graph cannot hold that
+# within TRACE_MISS, ten can.
+LT_TRACED_REPLAYS = 10
+
+
+def latent_train_expect(unet, cn, vae, mode, size, cached):
+    """The launches of one latent training step, counted from the modules (``gn_heads``, ``flash_sites``):
+    B3 in the forward of the UNet (and its ``conv_norm_out``), the ControlNet and, from pixels, two VAE
+    encodes (its backward is the plain composition); B1 at each flash site; B2a/B2b at each one the
+    gradient reaches: the ControlNet's and the UNet's up blocks' in ControlNet mode, every one with LoRA."""
+    unet_sites = flash_sites(unet, size)
+    cn_sites = [] if cn is None else flash_sites(cn, size)
+    bwd = len(cn_sites) + (len(unet_sites) if "lora" in mode else sum(n.startswith("up_blocks_") for n in unet_sites))
+    b3 = gn_heads(unet) + 1 + (0 if cn is None else gn_heads(cn)) + (0 if cached else 2 * (gn_heads(vae.encoder) + 1))
+    expect = {"flash_attention_fwd": len(unet_sites) + len(cn_sites), "flash_attention_bwd_dq": bwd,
+              "flash_attention_bwd_dkv": bwd, "group_norm_silu": b3}
+    stated = LT_STATED.get((mode, size, cached))
+    got = (b3, expect["flash_attention_fwd"], bwd)
+    if stated and got != stated:
+        raise AssertionError(f"latent_train {mode} {size}: the modules give {expect}, stated {stated}")
+    return expect
+
+
+def latent_train_batch(torch, batch, size, seed, vae=None, device="cuda"):
+    """A fixed-seed ``{"hr", "lr"}`` batch of ``[B, S, S, 1]`` slices in [0, 1]; with ``vae`` the cached-latent
+    batch instead: the posterior moments of both (``[B, S/8, S/8, 4]``) and the ``lr`` pixels."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hr = torch.rand((batch, size, size, 1), generator=gen, device=device)
+    lr = (hr + 0.1 * torch.randn(hr.shape, generator=gen, device=device)).clamp(0, 1)
+    if vae is None:
+        return {"hr": hr, "lr": lr}
+    out = {"lr": lr}
+    with torch.no_grad():
+        for side, x in (("hr", hr), ("lr", lr)):
+            mean, logvar = vae.encode_moments(x.reshape(batch, 1, size, size).expand(-1, 3, -1, -1))
+            out[f"{side}_mean"], out[f"{side}_logvar"] = (t.permute(0, 2, 3, 1).contiguous() for t in (mean, logvar))
+    return out
+
+
+def latent_train_step(torch, unet, cn, vae, mode, cached, prompt, empty, device="cuda", cuda_graph=True):
+    """(a train state, the step) of ``mode`` (``"cn_lora"`` or ``"controlnet"``), AdamW with clipping at 1.0."""
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.models.lora import init_lora_params
+    from mrisr_torch.train import latent
+    from mrisr_torch.train.state import create_train_state, make_optimizer
+
+    tx = make_optimizer(LT_LR, kind="adamw", max_grad_norm=1.0)
+    kw = dict(empty_embeds=empty, proportion_empty_prompts=LT_CFG, latents_cached=cached, device=device,
+              cuda_graph=cuda_graph)
+    sched = sd15_schedule()
+    if mode == "cn_lora":
+        lora = init_lora_params(unet, LT_LORA_RANK, generator=torch.Generator(device=device).manual_seed(41))
+        state = create_train_state(latent.cn_lora_params(cn, lora), tx, device=device)
+        return state, latent.make_cn_lora_train_step(unet, cn, vae, sched, prompt, **kw)
+    state = create_train_state(cn, tx, device=device)
+    return state, latent.make_controlnet_train_step(unet, cn, vae, sched, prompt, **kw)
+
+
+def latent_train_case(torch, unet, cn, vae, prompt, empty, mode, size, batch, cached):
+    """One training configuration: the graphed step (first call: warm-ups and capture) and, at 256^2, the
+    eager step over ``LT_STEPS`` steps from one state and the same generators (losses, parameters,
+    optimizer and generator states bitwise equal under deterministic cuDNN); graphed ms a step and peak
+    memory; ``LT_TRACED_REPLAYS`` traced replays, their launches from the graph's kernel nodes held to
+    ``latent_train_expect``.  -> (launches, {(shape, groups, eps): B3 calls} of the first graphed call: its
+    eager warm-ups and the capture)."""
+    from mrisr_torch.train.steps import step_generator
+
+    expect = latent_train_expect(unet, cn, vae, mode, size, cached)
+    data = latent_train_batch(torch, batch, size, 42, vae if cached else None)
+    state, graphed = latent_train_step(torch, unet, cn, vae, mode, cached, prompt, empty)
+    eager_too = size <= 256
+    if eager_too:
+        eager_state, eager = state.clone(), latent_train_step(torch, unet, cn, vae, mode, cached, prompt, empty,
+                                                                cuda_graph=False)[1]
+    recs, what = [], f"latent_train {mode} {size}"
+    for i in range(LT_STEPS):
+        before = {k: p.clone() for k, p in state.params.items()}
+        gen = step_generator(43, i, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if i == 0:
+            (out, metrics), heads = recording_heads(torch, lambda: graphed(state, data, gen))
+        else:
+            out, metrics = graphed(state, data, gen)
+        torch.cuda.synchronize()
+        rec = {"phase": "latent_train", "mode": mode, "size": size, "batch": batch, "cached_latents": cached,
+               "dtype": "float32", "step": i, "graph_ms": (time.perf_counter() - t0) * 1e3,
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "loss": float(metrics["loss"]),
+               "param_max_move": max(float((state.params[k] - p).abs().max()) for k, p in before.items())}
+        ok = out is state and state.step == i + 1 and math.isfinite(rec["loss"]) and 0.0 < rec["param_max_move"]
+        if eager_too:
+            egen = step_generator(43, i, "cuda")
+            t0 = time.perf_counter()
+            eager_state, emetrics = eager(eager_state, data, egen)
+            torch.cuda.synchronize()
+            same = (float(emetrics["loss"]) == rec["loss"] and torch.equal(gen.get_state(), egen.get_state())
+                    and all(torch.equal(a, b) for a, b in zip(_state_tensors(state), _state_tensors(eager_state),
+                                                              strict=True)))
+            rec.update(eager_ms=(time.perf_counter() - t0) * 1e3, eager_loss=float(emetrics["loss"]),
+                       graph_equals_eager=same)
+            ok = ok and same
+        rec["ok"] = ok
+        emit(rec)
+        recs.append(rec)
+        if not ok:
+            raise AssertionError(f"{what}: training step failed its checks: {rec}")
+    step_ms = min(r["graph_ms"] for r in recs[1:])
+
+    def replays():
+        for j in range(LT_TRACED_REPLAYS):
+            graphed(state, data, step_generator(43, LT_STEPS + j, "cuda"))
+
+    _, counts, prof = replayed(torch, replays, _OneGraph(graphed), LT_TRACED_REPLAYS,
+                               f"{what} {LT_TRACED_REPLAYS} replays", step_ms * LT_TRACED_REPLAYS, expect)
+    emit({"phase": "latent_train_profile", "mode": mode, "size": size, "batch": batch, "cached_latents": cached,
+          "step_ms": step_ms, "replays": LT_TRACED_REPLAYS, "expected_launches_a_step": expect, "launches": counts,
+          "launches_from": f"the graph's kernel nodes times the graph launches in a trace of {LT_TRACED_REPLAYS} "
+                           "replays", **prof})
+    return counts, heads
+
+
+def check_latent_train_grad(torch, unet, cn, prompt):
+    """One ControlNet step from cached latents at ``LT_GRAD_SIZE``^2, bs 1, eager with fixed draws: the
+    card's kernels (TF32 off) against the CPU's plain path, gradient by gradient."""
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.models.controlnet import ControlNet
+    from mrisr_torch.models.sd_unet import SDUNet
+    from mrisr_torch.models.vae import AutoencoderKL
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+    from mrisr_torch.train import latent
+    from mrisr_torch.train.state import Optimizer, create_train_state
+
+    size, lat = LT_GRAD_SIZE, LT_GRAD_SIZE // 8
+    sched = sd15_schedule()
+    cpu_unet, cpu_cn = SDUNet(device="cpu"), ControlNet(device="cpu")
+    cpu_unet.load_state_dict({k: v.cpu() for k, v in unet.state_dict().items()})
+    cpu_cn.load_state_dict({k: v.cpu() for k, v in cn.state_dict().items()})
+    gen = torch.Generator().manual_seed(44)
+    batch = {"lr": torch.rand((1, size, size, 1), generator=gen)}
+    for side in ("hr", "lr"):
+        batch[f"{side}_mean"] = torch.randn((1, lat, lat, 4), generator=gen)
+        batch[f"{side}_logvar"] = -4.0 + 0.1 * torch.randn((1, lat, lat, 4), generator=gen)
+    draws = {"hr_noise": torch.randn((1, 4, lat, lat), generator=gen),
+             "lr_noise": torch.randn((1, 4, lat, lat), generator=gen), "t": torch.tensor([400]),
+             "eps": torch.randn((1, 4, lat, lat), generator=gen)}
+    expect = latent_train_expect(unet, cn, None, "controlnet", size, True)
+
+    def gradients(u, c, device):
+        seen = {}
+
+        def record(grads, opt_state, params):  # an optimizer that keeps the gradients and moves nothing
+            seen.update(grads)
+            return {k: torch.zeros_like(g) for k, g in grads.items()}, opt_state
+
+        vae = AutoencoderKL(device=device)  # the cached path reads only its scaling factor
+        state = create_train_state(c, Optimizer(lambda p: {}, record), device=device)
+        step = latent.make_controlnet_train_step(u, c, vae, sched, prompt.to(device), latents_cached=True,
+                                                 device=device, cuda_graph=False)
+        on = lambda tree: {k: v.to(device) for k, v in tree.items()}  # noqa: E731
+        t0 = time.perf_counter()
+        _, metrics = step(state, on(batch), None, on(draws))
+        loss = float(metrics["loss"])
+        return {k: g.cpu() for k, g in seen.items()}, loss, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    g_gpu, loss_gpu, gpu_s = gradients(unet, cn, "cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    g_cpu, loss_cpu, cpu_s = gradients(cpu_unet, cpu_cn, "cpu")
+    rel = {k: float((g_gpu[k] - g).norm() / g.norm().clamp_min(1e-30)) for k, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    ok = rel[worst] <= GRAD_TOL and counts == expect and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    rec = {"phase": "latent_train_grad", "mode": "controlnet", "size": size, "latent": lat, "batch": 1,
+           "cached_latents": True, "dtype": "float32", "tf32": False, "launches": counts, "expected": expect,
+           "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "leaves": len(rel), "worst_leaf": worst,
+           "worst_rel_l2": rel[worst], "median_rel_l2": sorted(rel.values())[len(rel) // 2], "tolerance": GRAD_TOL,
+           "gpu_step_s": gpu_s, "cpu_step_s": cpu_s, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"latent training gradients on the card disagree with the CPU plain path: {rec}")
+
+
+def phase_latent_train(torch):
+    """The latent family's training at SD1.5's widths (fp32 weights and states, random weights from fixed
+    seeds, the ControlNet's zero convs given random values, 77x768 prompt, CFG dropout 0.1, AdamW 1e-5 clipped
+    at 1.0): ``LT_CASES`` through ``latent_train_case``; B3 in fp32 against its plain version at every head
+    shape those steps gave it; one step's gradients against the CPU (``check_latent_train_grad``);
+    ``train-latent`` in this process at 256^2, bs 2, in each mode of ``LT_CLI_RUNS``, traced whole
+    (``traced_command``)."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from mrisr_torch import cli
+
+    torch.backends.cudnn.deterministic = True
+    unet, cn, vae = latent_modules(torch, torch.float32, seed=40)
+    gen = torch.Generator().manual_seed(45)
+    prompt = (0.02 * torch.randn((1, 77, 768), generator=gen)).cuda()
+    empty = torch.zeros((1, 77, 768), device="cuda")
+    totals, heads = {}, {}
+    for mode, size, batch, cached in LT_CASES:
+        counts, seen = latent_train_case(torch, unet, cn, vae, prompt, empty, mode, size, batch, cached)
+        add_counts(totals, counts)
+        for key, calls in seen.items():
+            heads.setdefault(key, {})[f"{mode} {size}"] = calls
+        torch.cuda.empty_cache()
+    for (shape, groups, eps), calls in sorted(heads.items(), key=lambda kv: -math.prod(kv[0][0])):
+        check_gn(torch, F, torch.float32, "latent_train_head", shape, groups, timed=False, eps=eps)
+        emit({"phase": "latent_train_head", "shape": list(shape), "groups": groups, "eps": eps, "dtype": "float32",
+              "calls_in_first_graphed_call": calls})
+    check_latent_train_grad(torch, unet, cn, prompt)
+    torch.backends.cudnn.deterministic = False
+    expect = {mode: latent_train_expect(unet, cn if mode == "controlnet" else None, vae, mode, 256, False)
+              for mode, _ in LT_CLI_RUNS}
+    del unet, cn, vae
+    torch.cuda.empty_cache()
+    for mode, steps in LT_CLI_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["train-latent", "--mode", mode, "--resolution", "256", "--batch", "2", "--steps", str(steps),
+                    "--out", tmp]
+            res, counts, trace = traced_command(torch, f"train-latent {mode}", lambda argv=argv: cli.run(argv),
+                                                lambda r: r["step"].graph, expect[mode], steps)
+            state = res["state"]
+            ok = state.step == steps and all(bool(torch.isfinite(p).all()) for p in state.params.values())
+            emit({"phase": "latent_train_cli", "mode": mode, **trace, **_run_record(tmp), "step": state.step,
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"train-latent {mode}: step {state.step} of {steps}, or a non-finite parameter")
+        add_counts(totals, counts)
+        del res, state
+        release_memory(torch, f"train-latent {mode}")
+    return totals
+
+
 KERNELS = [  # (name, route, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
     ("flash_attention_bwd_dq", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:228"),
@@ -1799,9 +2096,10 @@ def summary(recs, path_launches):
     return {"kernels": entries}
 
 
-PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "forward", "train", "cli", "grad", "bench")
+PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "forward", "train", "cli",
+          "grad", "bench")
 # Paths whose launches the kernels line counts; serving paths launch no backward kernel.
-MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "train", "cli")
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "train", "cli")
 
 
 def main(argv) -> int:
@@ -1836,7 +2134,7 @@ def main(argv) -> int:
     recs = phase_kernels(torch) if "kernel" in phases else None
     path_launches = {}
     for name, run in (("chain", phase_chain), ("checkpoint", phase_checkpoint), ("volume", phase_volume),
-                      ("ddpm", phase_ddpm), ("latent", phase_latent)):
+                      ("ddpm", phase_ddpm), ("latent", phase_latent), ("latent_train", phase_latent_train)):
         if name in phases:
             path_launches[name] = run(torch)
     if "forward" in phases:
@@ -1848,7 +2146,7 @@ def main(argv) -> int:
     if "grad" in phases:
         phase_grad(torch)
     if "bench" in phases:
-        phase_bench()
+        phase_bench(torch)
     if recs and set(path_launches) == set(MAIN_PATHS):
         summary_line = summary(recs, path_launches)
         emit(summary_line)

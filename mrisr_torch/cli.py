@@ -2,6 +2,7 @@
 
     python -m mrisr_torch.cli train-cnn      [--config c.yaml] ...
     python -m mrisr_torch.cli train-resdiff  [--config c.yaml] ...
+    python -m mrisr_torch.cli train-latent   --mode {controlnet,lora,adapter} ...
     python -m mrisr_torch.cli build-cache    --out cache.bin ...
     python -m mrisr_torch.cli sr-volume      --checkpoint DIR --input vol.nii.gz --output sr.nii
 
@@ -116,6 +117,22 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--resolution", type=int, default=256)
     p.add_argument("--out", default="./outputs/resdiff")
+
+    p = add("train-latent", help="PEFT training on the SD1.5 latent stack (ControlNet / LoRA / T2I-Adapter)")
+    _add_common(p)
+    _add_train_common(p)
+    p.add_argument("--mode", choices=["controlnet", "lora", "adapter"], default="controlnet")
+    p.add_argument("--index", required=False)
+    p.add_argument("--weights-dir", default=None, help="dir of converted .npz params (unet.npz, vae.npz)")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--resolution", type=int, default=256)
+    p.add_argument("--lora-rank", type=int, default=4)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--warmup", type=int, default=500)
+    p.add_argument("--proportion-empty-prompts", type=float, default=0.1)
+    p.add_argument("--tiny", action="store_true", help="tiny tower config (CPU)")
+    p.add_argument("--out", default="./outputs/latent")
 
     p = add("build-cache", help="materialise a dataset into the native slice cache")
     _add_common(p)
@@ -353,6 +370,100 @@ def _train_resdiff(args):
     return {"state": state, "step": step, "pipeline": pipe}
 
 
+LATENT_TINY = dict(unet=dict(block_out_channels=(8, 16, 16, 16), heads=2, context_dim=16),
+                   vae=dict(block_out_channels=(8, 8, 16, 16)), context=(7, 16))
+LATENT_SD15 = dict(unet={}, vae={}, context=(77, 768))
+LATENT_CKPT_EVERY = 200  # the reference's checkpointing_steps
+
+
+def _train_latent(args):
+    """PEFT training of the latent family (the reference's hyperparameters: lr 1e-5, cosine schedule with 500
+    warmup steps, AdamW, gradient-norm clip 1.0, CFG dropout 0.1), fp32 weights and states, a fixed random
+    prompt embedding.  The modules are random from ``--seed`` unless ``--weights-dir`` holds converted
+    ``unet.npz`` / ``vae.npz``."""
+    import torch
+
+    from mrisr_torch.data.loader import Loader
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.models.adapter import T2IAdapter
+    from mrisr_torch.models.controlnet import ControlNet
+    from mrisr_torch.models.lora import init_lora_params
+    from mrisr_torch.models.sd_unet import SDUNet
+    from mrisr_torch.models.vae import AutoencoderKL
+    from mrisr_torch.train import latent
+    from mrisr_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+    from mrisr_torch.train.steps import step_generator
+    from mrisr_torch.utils.checkpoint import CheckpointManager
+    from mrisr_torch.utils.logging import MetricLogger
+
+    if args.precision != "float32" or args.remat or args.val_every:
+        raise SystemExit("train-latent trains in float32, without --remat or validation")
+    device = _device(args)
+    cfg = LATENT_TINY if args.tiny else LATENT_SD15
+    ctx_len, ctx_dim = cfg["context"]
+    torch.manual_seed(args.seed)
+    unet = SDUNet(**cfg["unet"], device=device)
+    vae = AutoencoderKL(**cfg["vae"], device=device)
+    if args.weights_dir:
+        from pathlib import Path
+
+        from mrisr_torch.weights import load_flax_params, load_params_npz
+
+        for name, module in (("unet", unet), ("vae", vae)):
+            path = Path(args.weights_dir) / f"{name}.npz"
+            if path.exists():
+                load_flax_params(module, load_params_npz(path))
+    gen = torch.Generator().manual_seed(args.seed)
+    prompt = (torch.randn((1, ctx_len, ctx_dim), generator=gen) * 0.02).to(device)
+    empty = torch.zeros((1, ctx_len, ctx_dim), device=device)
+    sched = sd15_schedule()
+    tx = make_optimizer(make_lr_schedule("cosine", args.lr, args.warmup, args.steps), kind="adamw",
+                        max_grad_norm=1.0, grad_accum=args.grad_accum)
+    if args.mode == "controlnet":
+        unet_kw = cfg["unet"]
+        cn = ControlNet(**{k: unet_kw[k] for k in ("block_out_channels", "heads", "context_dim") if k in unet_kw},
+                        device=device)
+        state = create_train_state(cn, tx, device=device)
+        make = lambda: latent.make_controlnet_train_step(  # noqa: E731
+            unet, cn, vae, sched, prompt, empty, args.proportion_empty_prompts, device=device)
+    elif args.mode == "lora":
+        lora = init_lora_params(unet, args.lora_rank, generator=torch.Generator(device).manual_seed(args.seed))
+        state = create_train_state(latent.lora_params(lora), tx, device=device)
+        make = lambda: latent.make_lora_train_step(  # noqa: E731
+            unet, vae, sched, prompt, empty_embeds=empty, proportion_empty_prompts=args.proportion_empty_prompts,
+            device=device)
+    else:
+        adapter = T2IAdapter(channels=unet.block_out_channels, device=device)
+        state = create_train_state(adapter, tx, device=device)
+        make = lambda: latent.make_adapter_train_step(unet, adapter, vae, sched, prompt, device=device)  # noqa: E731
+    mgr = CheckpointManager(f"{args.out}/ckpt")
+    if args.resume and mgr.latest_step() is not None:
+        mgr.restore(state, in_place=True)
+        print(f"resumed from step {state.step}")
+    step = make()
+    logger = MetricLogger(args.out)
+    ds = _resolve_dataset(args)
+    loader = Loader(ds, batch_size=args.batch, shuffle=True, seed=args.seed, pin_memory=device.type == "cuda")
+    i = state.step
+    meter = _Throughput(device)
+    batches = loader.batches(start=i)
+    while i < args.steps:
+        batch = meter.next_batch(batches)
+        b = {"lr": _to_device(batch["lr"], device), "hr": _to_device(batch["hr"], device)}
+        gen = step_generator(args.seed, i, device)
+        state, m = meter.timed(lambda: step(state, b, gen))
+        if i % 50 == 0:
+            logger.log(i, m)
+        if i > 0 and i % LATENT_CKPT_EVERY == 0:
+            mgr.save(i, state)
+        i += 1
+    batches.close()
+    logger.log(i, meter.record(loader), prefix="run_")
+    mgr.save(i, state, force=True)
+    mgr.close()
+    return {"state": state, "step": step, "unet": unet, "vae": vae}
+
+
 def _build_cache(args):
     from mrisr_torch.data.slicecache import build_cache_from_dataset
 
@@ -435,8 +546,8 @@ def _sr_volume(args):
     return {"pipeline": pipe, "volume": out}
 
 
-_COMMANDS = {"train-cnn": _train_cnn, "train-resdiff": _train_resdiff, "build-cache": _build_cache,
-             "sr-volume": _sr_volume}
+_COMMANDS = {"train-cnn": _train_cnn, "train-resdiff": _train_resdiff, "train-latent": _train_latent,
+             "build-cache": _build_cache, "sr-volume": _sr_volume}
 
 
 def run(argv=None) -> dict:

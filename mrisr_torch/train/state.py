@@ -363,10 +363,12 @@ def _to_device(tree, device):
 
 
 def create_train_state(
-    module: nn.Module, tx: Optimizer, ema_decay: float = 0.0, device: str | torch.device = "cuda"
+    module: nn.Module | Params, tx: Optimizer, ema_decay: float = 0.0, device: str | torch.device = "cuda"
 ) -> TrainState:
-    """A state on ``device`` from ``module``'s parameters (copied, float32)."""
+    """A state on ``device`` from ``module``'s parameters, or from a ``name -> tensor`` dict (copied,
+    float32)."""
     dev = resolve_device(device)
-    params = {k: p.detach().to(dev, torch.float32, copy=True) for k, p in module.named_parameters()}
+    named = module.named_parameters() if isinstance(module, nn.Module) else module.items()
+    params = {k: p.detach().to(dev, torch.float32, copy=True) for k, p in named}
     ema = {k: p.clone() for k, p in params.items()} if ema_decay > 0 else None
     return TrainState(params, tx, tx.init(params), 0, ema, ema_decay)

@@ -2,8 +2,8 @@
 
 One factory per pipeline; each returns ``step(state, batch, generator,
 draws=None) -> (state, {"loss": ...})``.  Batches are dicts of ``[B, H, W, 1]``
-images, as in the reference; the models run NCHW.  The MNIST and latent
-factories are not ported yet.
+images, as in the reference; the models run NCHW.  The latent family's
+factories are in ``train/latent.py``; the MNIST ones are not ported yet.
 
 On a CUDA device the step is one captured ``torch.cuda.CUDAGraph``
 (``cuda_graph=True``, the default): the random draws, the forward, the
@@ -16,7 +16,7 @@ generator registered with the graph, replays, and hands the advanced state
 back to the caller's generator, so a replay draws what the eager step draws.
 A graphed step updates ``state`` in place and returns that same object; it
 is bound to the state it captured (and to one batch shape) and raises on
-another, or on ``draws``.  Its loss is a fresh tensor each call.  The eager
+another, or on ``draws``.  Its metrics are fresh tensors each call.  The eager
 step (CPU, or ``cuda_graph=False``) returns a new state and leaves the one it
 was given as it was.  A step the graph cannot capture raises; nothing falls
 back to the eager step.
@@ -86,7 +86,8 @@ class GraphedStep:
     """One training step captured as a CUDA graph and replayed (see the module docstring).
 
     ``body(state, inputs, generator, regen)`` runs one step in place on
-    ``state`` from the NCHW ``inputs`` and returns the loss; ``regen`` is the
+    ``state`` from the NCHW ``inputs`` and returns the loss (or a dict of
+    metrics, the loss among them); ``regen`` is the
     second registered generator a remat step recomputes its forward with
     (None otherwise).  ``keys`` names the batch entries copied in.
     """
@@ -100,7 +101,7 @@ class GraphedStep:
         self.inputs: dict[str, torch.Tensor] = {}
         self.gens: list[torch.Generator] = []
         self.regen_offset = 0
-        self.loss: torch.Tensor | None = None
+        self.metrics: dict[str, torch.Tensor] = {}
 
     def _capture(self, state: TrainState, inputs: dict, generator) -> None:
         self.inputs = {k: v.clone() for k, v in inputs.items()}
@@ -127,7 +128,8 @@ class GraphedStep:
         gen, regen = (self.gens + [None, None])[:2]
         # thread_local: the loader's thread may pin host memory meanwhile, which is no work of the capture.
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.loss = self.body(state, self.inputs, gen, regen)
+            out = self.body(state, self.inputs, gen, regen)
+        self.metrics = out if isinstance(out, dict) else {"loss": out}
         graph.instantiate()
         self.graph, self.state = graph, state
 
@@ -157,7 +159,7 @@ class GraphedStep:
         if self.random:
             generator.set_state(self.gens[0].get_state())
         state.step += 1
-        return state, {"loss": self.loss.clone()}
+        return state, {k: v.clone() for k, v in self.metrics.items()}
 
 
 def _graphed(device: torch.device, cuda_graph: bool) -> bool:

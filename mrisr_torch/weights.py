@@ -89,3 +89,17 @@ def load_flax_checkpoint(module: nn.Module, path: str | Path) -> dict:
     tree = read_msgpack(path)
     load_flax_params(module, tree["ema"])
     return tree
+
+
+def load_params_npz(path: str | Path) -> dict:
+    """A Flax param tree from a converted ``.npz`` (flat ``"a/b/c"`` keys, as the JAX package's
+    ``save_params_npz`` writes them), for :func:`load_flax_params`."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(z[key])
+    return tree
