@@ -59,7 +59,7 @@ result.  Each phase prints JSON lines:
    replay's launches from the graph's kernel nodes, held to the counts the
    modules give: B3 1350 at both sizes, B1 0 at 512^2 and 140 at 1024^2; one
    graphed adapter-mode chain at 512^2 (B3 950); one fp32 ControlNet+UNet
-   evaluation at 1024^2, bs 1, against the CPU's plain path (rms error within
+   evaluation at 576^2, bs 1, against the CPU's plain path (rms error within
    1e-4 of rms(ref)); B3 at every head shape of the 512^2 chain (collected
    from the modules while the eager chain runs) and B1 at the SD route (64 x
    16384^2, D=40 padded to 64), both dtypes, against their plain versions,
@@ -100,12 +100,30 @@ result.  Each phase prints JSON lines:
    dropout 0, kernels on) against the CPU plain path, per parameter; and
    the same for the parity-harness UNet;
 14. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
-   ``--pipeline latent``) in a subprocess, its JSON line echoed.
+   ``--pipeline latent``) in a subprocess, its JSON line echoed;
+15. ``prep`` (run after ``latent_train``): the workflow around the model with
+   no JAX.  (a) SD1.5-width SDUNet and AutoencoderKL (fp32, fixed seeds)
+   exported to diffusers-named ``.safetensors`` and through ``convert-weights``
+   to the reference's ``.npz`` (seconds to read, convert and write);
+   ``train-latent --weights-dir`` (ControlNet, 256^2, bs 2, 2 steps) traced
+   whole, the towers it read from the ``.npz`` bitwise equal to the originals; a bf16
+   ``LatentSRPipeline`` on them serving a 256x256x8 NIfTI at bs 4, serially
+   and two batches a call (equal volumes, seconds per volume, one traced
+   volume of each).  (b) A BIDS tree of two subjects (64 mT 146x182x36, 3 T
+   176x240x256): ``stats``, ``report``, ``preprocess-slices`` and
+   ``evaluate`` on the card, ``export-png``; ``build-index`` over two
+   DICOM patients x 16 slices; seconds and output counts of each.  (c) One
+   pair on the 3 T grid, the LR under a known motion and a bias field,
+   through ``SliceDataset(do_n4=True)`` with the rigid registration on the
+   card: N4 and registration seconds, the 6 parameters against the motion
+   (``PREP_MOTION_TOL``) and against the CPU's (``PREP_CPU_TOL``); on a
+   thread beside (a) and (b), its registration after them.
 
-Each main path (chain, checkpoint, volume, ddpm, latent, latent_train, train, cli) is driven with
+Each phase's seconds follow it (``"phase": "seconds"``).  Each main path (chain, checkpoint, volume, ddpm,
+latent, latent_train, prep, train, cli) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  A
 replayed CUDA graph calls no wrapper: a graphed path (chain, checkpoint,
-volume, latent, latent_train, train, cli) is traced, its wrappers' counts must stay 0, and its
+volume, latent, latent_train, prep, train, cli) is traced, its wrappers' counts must stay 0, and its
 launches are the captured graph's kernel nodes times the graph launches in the
 trace, held equal to what the path must launch (``replayed``).
 Then the kernels summary line, the nvidia-smi line, and last the result line.
@@ -119,6 +137,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): tensor-core bf16, fp32 outside
@@ -198,14 +217,16 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2, "flash_
 
 
 LOG = None  # a file that also gets every JSON line (--log), for runs whose output is cut
+EMIT_LOCK = threading.Lock()  # phase ``prep`` emits from three threads
 
 
 def emit(obj):
     line = json.dumps(obj)
-    print(line, flush=True)
-    if LOG is not None:
-        LOG.write(line + "\n")
-        LOG.flush()
+    with EMIT_LOCK:
+        print(line, flush=True)
+        if LOG is not None:
+            LOG.write(line + "\n")
+            LOG.flush()
 
 
 def cuda_ms(torch, fn, min_total_ms=200.0, max_iters=50):
@@ -1569,8 +1590,10 @@ LATENT_CHAINS = (("512", 8, 512), ("1024", 2, 1024))
 # x 2 + conv_norm_out, ControlNet 10 x 2) and 50 in the VAE (encoder 10 x 2 + 1, decoder 14 x 2 + 1); 45 a
 # step in adapter mode; B1 7 a step at 128^2 latents (UNet 2 + 3, ControlNet 2), none at 64^2.
 LATENT_STATED = {("controlnet", 512): (1350, 0), ("controlnet", 1024): (1350, 140), ("adapter", 512): (950, 0)}
-# One fp32 ControlNet+UNet evaluation at 1024^2, bs 1, card (TF32 off) against the CPU's plain path.
-LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 1024, 1e-4
+# One fp32 ControlNet+UNet evaluation, bs 1, card (TF32 off) against the CPU's plain path, at the smallest size
+# above 512^2 (72^2 latents: 5184 keys, B1 at the level-0 sites, as at 1024^2).  At 1024^2 the CPU leg took
+# 79.7 and 99.5 s on two H100 hosts, and the run would not keep inside its 1200 s on the slower; 10.7 s here.
+LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 576, 1e-4
 # B1 at the SD route: 8 images x 8 heads at 128^2 latents, D = 40 (the wrapper pads it to 64).
 FLASH_SD = ("sd_route", 64, 16384, 16384, 40)
 # B2a/B2b at the SD route, as a 1024^2 latent training step runs them: one image's 8 heads, fp32.
@@ -1636,13 +1659,13 @@ def latent_expect(pipe, size, steps):
 
 
 def recording_heads(torch, run):
-    """``run()`` with every B3 call of the SD modules recorded: (result, {(shape, groups, eps): calls})."""
+    """``run()`` with every B3 call of the SD modules recorded: (result, {(shape, groups, eps, dtype): calls})."""
     from mrisr_torch.models import sd_layers
 
     seen, launch = {}, sd_layers.group_norm_silu
 
     def record(x, weight, bias, groups, eps):
-        key = (tuple(x.shape), groups, eps)
+        key = (tuple(x.shape), groups, eps, x.dtype)
         seen[key] = seen.get(key, 0) + 1
         return launch(x, weight, bias, groups, eps)
 
@@ -1673,7 +1696,7 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
     gen = torch.Generator(device="cuda").manual_seed(21)
     lr = (torch.rand((batch, size, size, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
     noise = ChainNoise.draw(pipe.latent_shape(lr), LATENT_STEPS, gen, "cuda")
-    run = lambda: pipe.super_resolve(lr, num_inference_steps=LATENT_STEPS, noise=noise)  # noqa: E731
+    run = lambda: pipe.super_resolve(lr, num_steps=LATENT_STEPS, noise=noise)  # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1699,7 +1722,7 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
     bad = rec["repeat_max_abs_diff"] != 0.0
     if eager_too:
         eager = LatentSRPipeline(unet, cn, vae, sched, prompt, device="cuda", cuda_graph=False, **kw)
-        erun = lambda: eager.super_resolve(lr, num_inference_steps=LATENT_STEPS, noise=noise)  # noqa: E731
+        erun = lambda: eager.super_resolve(lr, num_steps=LATENT_STEPS, noise=noise)  # noqa: E731
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # The counted eager chain is also the timed one (the run's time limit).
@@ -1736,7 +1759,7 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
 
 
 def check_latent_fp32(torch):
-    """One fp32 ControlNet+UNet evaluation at 1024^2 (128^2 latents, bs 1; B1 at its D=40 site), the card's
+    """One fp32 ControlNet+UNet evaluation at ``LATENT_FP32_SIZE``^2 (bs 1; B1 at its D=40 sites), the card's
     kernels (TF32 off) against the CPU's plain path: max abs error over max |ref|, rms error over rms(ref)."""
     from mrisr_torch.models.controlnet import ControlNet
     from mrisr_torch.models.sd_unet import SDUNet
@@ -1791,7 +1814,10 @@ def phase_latent(torch):
     heads = None
     for case, batch, size in LATENT_CHAINS:  # eagerly too at 512^2 only (the run's time limit)
         counts, seen = latent_chain(torch, unet, cn, vae, prompt, case, batch, size, eager_too=size == 512)
-        heads = heads or seen
+        if heads is None and seen:  # by shape, whatever dtype each ran in: each is checked in both below
+            heads = {}
+            for (shape, groups, eps, _), calls in seen.items():
+                heads[shape, groups, eps] = heads.get((shape, groups, eps), 0) + calls
         add_counts(totals, counts)
         torch.cuda.empty_cache()
     del cn
@@ -1806,10 +1832,16 @@ def phase_latent(torch):
     check_latent_fp32(torch)
     torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
+        chain = dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
         for (shape, groups, eps), calls in sorted(heads.items(), key=lambda kv: -math.prod(kv[0][0])):
             rec = check_gn(torch, F, dtype, "latent_head", shape, groups, timed=True, eps=eps, brief=True)
             emit({"phase": "latent_head", "shape": list(shape), "groups": groups, "eps": eps,
                   "dtype": rec["dtype"], "calls_in_512_eager_chain": calls})
+            for k in chain:
+                chain[k] += calls * rec[k]
+        # Each head's time times its calls in a 512^2 chain, summed: B3's share of a chain in this dtype.
+        emit({"phase": "latent_head_totals", "dtype": str(dtype).split(".")[-1], "heads": len(heads),
+              "calls_a_chain": sum(heads.values()), **{f"{k}_a_chain": v for k, v in chain.items()}})
         check_flash(torch, F, dtype, *FLASH_SD, timed=True)
     return totals
 
@@ -2042,9 +2074,9 @@ def phase_latent_train(torch):
         for key, calls in seen.items():
             heads.setdefault(key, {})[f"{mode} {size}"] = calls
         torch.cuda.empty_cache()
-    for (shape, groups, eps), calls in sorted(heads.items(), key=lambda kv: -math.prod(kv[0][0])):
-        check_gn(torch, F, torch.float32, "latent_train_head", shape, groups, timed=False, eps=eps)
-        emit({"phase": "latent_train_head", "shape": list(shape), "groups": groups, "eps": eps, "dtype": "float32",
+    for (shape, groups, eps, dtype), calls in sorted(heads.items(), key=lambda kv: -math.prod(kv[0][0])):
+        rec = check_gn(torch, F, dtype, "latent_train_head", shape, groups, timed=False, eps=eps)
+        emit({"phase": "latent_train_head", "shape": list(shape), "groups": groups, "eps": eps, "dtype": rec["dtype"],
               "calls_in_first_graphed_call": calls})
     check_latent_train_grad(torch, unet, cn, prompt)
     torch.backends.cudnn.deterministic = False
@@ -2069,6 +2101,433 @@ def phase_latent_train(torch):
         release_memory(torch, f"train-latent {mode}")
     return totals
 
+
+# Phase ``prep``: the user's workflow around the model with no JAX, at the sizes users run it.
+# (a) Weights: SD1.5-width SDUNet and AutoencoderKL (fp32, random from fixed seeds) exported to diffusers-named
+# ``.safetensors`` and through ``convert-weights`` to the reference's ``.npz``; ``train-latent --weights-dir``
+# from them; a LatentSRPipeline on them serving a NIfTI serially and grouped.
+PREP_SEEDS = {"unet": 60, "vae": 61, "controlnet": 62, "prompt": 63}
+PREP_CONTEXT = (77, 768)
+PREP_TRAIN = ["--mode", "controlnet", "--resolution", "256", "--batch", "2", "--steps", "2"]
+PREP_VOLUME, PREP_VOLUME_BATCH, PREP_VOLUME_GROUP = (256, 256, 8), 4, 2
+# (b) Data: a BIDS tree of two subjects, the 64 mT scan on a 146x182x36 grid (1.5 x 1.5 x 5 mm, the x axis
+# stored flipped) and the 3 T scan on 176x240x256 (1 mm); a DICOM tree of two patients x 16 slices.
+PREP_SUBJECTS = 2
+PREP_LR_GRID, PREP_LR_AFFINE = (146, 182, 36), (-1.5, 1.5, 5.0)
+PREP_HR_GRID = (176, 240, 256)
+PREP_DICOM = (2, 16, 256)  # patients, slices, rows = columns
+# The card's ``preprocess-slices`` (subject 1's slices) and ``evaluate`` (the four means over every
+# PREP_EVAL_STRIDE-th exported pair) against the same commands with ``--cpu`` on the same inputs: slices within
+# PREP_SLICES_TOL (rtol, atol), means within PREP_SCORES_RTOL, the counts equal.
+PREP_SLICES_TOL, PREP_SCORES_RTOL, PREP_EVAL_STRIDE = (1e-5, 1e-6), 1e-5, 8
+# (c) Registration and N4 on one pair on the 3 T grid: the LR is the HR under PREP_MOTION (3 degrees about axis
+# 2, 2 voxels along axis 1) and a smooth multiplicative bias field.  Limits, stated before the first run: the
+# recovered angles within PREP_MOTION_TOL[0] rad and shifts within PREP_MOTION_TOL[1] voxels of the motion;
+# the card's 6 parameters within PREP_CPU_TOL of the same registration on the CPU.
+PREP_MOTION = (0.0, 0.0, math.radians(3.0), 0.0, 2.0, 0.0)
+PREP_BIAS = (0.03, 0.015, -0.025)  # the bias field is exp(sum_i PREP_BIAS[i] * x_i), x_i in [-1, 1] along axis i
+PREP_MOTION_TOL = (math.radians(0.5), 0.5)
+PREP_CPU_TOL = 1e-3
+
+
+def prep_head(shape, seed, peak=900.0):
+    """A synthetic head on a ``shape`` grid: inside an ellipsoid (cut by the first and last axial slices),
+    tissue at a fifth of ``peak`` plus ten
+    smooth blobs of random sizes and intensities and Gaussian noise of 1 % of ``peak``; 0 outside; float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in shape], indexing="ij", sparse=True)
+    vol = np.full(shape, 0.2 * peak, np.float32)
+    for _ in range(10):
+        c, r = rng.uniform(-0.45, 0.45, 3), rng.uniform(0.12, 0.4, 3)
+        vol += np.float32(rng.uniform(0.25, 1.0) * peak) * np.exp(-sum(((g[i] - c[i]) / r[i]) ** 2 for i in range(3)))
+    vol += rng.normal(0.0, 0.01 * peak, shape).astype(np.float32)
+    vol *= (g[0] / 0.85) ** 2 + (g[1] / 0.92) ** 2 + (g[2] / 1.2) ** 2 < 1.0  # tissue in every axial slice
+    return np.maximum(vol, 0.0)
+
+
+def prep_weights(torch, tmp, converted, data_done):
+    """Leg (a): the conversions (host work; ``converted`` set after them), then, once leg (b) is done with the
+    card (``data_done``), ``train-latent`` and the volume, and B3 against its plain version at every (shape,
+    dtype) that ``train-latent`` and the volume's capturing call gave it.  -> the path's launches:
+    ``train-latent`` traced whole and one traced volume of each dispatch."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+    import torch.nn.functional as F
+    from torch import nn
+
+    from mrisr_torch import cli
+    from mrisr_torch.data.nifti import write_nifti
+    from mrisr_torch.data.safetensors_io import save_safetensors
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.models.controlnet import ControlNet
+    from mrisr_torch.models.convert import export_diffusers_tree
+    from mrisr_torch.models.sd_unet import SDUNet
+    from mrisr_torch.models.vae import AutoencoderKL
+    from mrisr_torch.pipelines.latent import LatentSRPipeline
+    from mrisr_torch.pipelines.volume import super_resolve_volume
+    totals, weights = {}, Path(tmp) / "weights"
+    weights.mkdir()
+    originals = {}
+    for name, cls in (("unet", SDUNet), ("vae", AutoencoderKL)):
+        torch.manual_seed(PREP_SEEDS[name])
+        module = originals[name] = cls()
+        t0 = time.perf_counter()
+        sd = export_diffusers_tree(module)
+        t1 = time.perf_counter()
+        src = f"{tmp}/{name}.safetensors"
+        save_safetensors(src, sd)
+        t2 = time.perf_counter()
+        n_tensors, n_bytes = len(sd), sum(a.nbytes for a in sd.values())
+        del sd
+        res = cli.run(["convert-weights", "--model", name, "--input", src, "--output", str(weights / f"{name}.npz")])
+        emit({"phase": "prep_weights", "model": name, "tensors": n_tensors, "fp32_bytes": n_bytes,
+              "npz_bytes": os.path.getsize(weights / f"{name}.npz"), "export_s": t1 - t0,
+              "safetensors_write_s": t2 - t1, "convert_weights_s": time.perf_counter() - t2,
+              "read_s": res["read_s"], "convert_s": res["convert_s"], "write_s": res["write_s"]})
+        os.remove(src)
+    converted.set()
+    t0 = time.perf_counter()
+    data_done.wait()
+    emit({"phase": "prep_weights", "waited_for_leg_b_s": time.perf_counter() - t0})
+    torch.manual_seed(PREP_SEEDS["controlnet"])
+    cn = ControlNet()
+    for name, m in cn.named_modules():  # zero convs given random values, as ``latent_modules`` does
+        if isinstance(m, nn.Conv2d) and (name.startswith("controlnet_") or name.endswith("cond_embedding.conv_out")):
+            m.reset_parameters()
+    expect = latent_train_expect(originals["unet"], cn, originals["vae"], "controlnet", 256, False)
+    # ``train-latent`` reads the .npz into fresh towers (``load_flax_params``), which it keeps frozen: those
+    # are the reloaded modules, held bitwise to the originals.
+    argv = ["train-latent", *PREP_TRAIN, "--weights-dir", str(weights), "--out", f"{tmp}/tl"]
+    (res, counts, trace), heads = recording_heads(torch, lambda: traced_command(
+        torch, "train-latent --weights-dir", lambda: cli.run(argv), lambda r: r["step"].graph, expect, 2))
+    add_counts(totals, counts)
+    state = res["state"]
+    reloaded = {}
+    for key in ("unet", "vae"):
+        mine = dict(originals[key].named_parameters())
+        same = [torch.equal(p, mine[k]) for k, p in res[key].named_parameters()]
+        reloaded[key] = {"parameters": len(same), "bitwise_equal": sum(same)}
+    ok = (state.step == 2 and all(v["parameters"] == v["bitwise_equal"] > 0 for v in reloaded.values())
+          and all(bool(torch.isfinite(p).all()) for p in state.params.values()))
+    emit({"phase": "prep_train_latent", **trace, **_run_record(f"{tmp}/tl"), "step": state.step,
+          "reloaded_towers": reloaded, "ok": ok})
+    if not ok:
+        raise AssertionError(f"prep: train-latent --weights-dir: step {state.step}, reloaded towers {reloaded}")
+    converted = {"unet": res["unet"], "vae": res["vae"]}
+    del res, state, originals
+    release_memory(torch, "prep train-latent")
+
+    prompt = torch.randn((1, *PREP_CONTEXT), generator=torch.Generator().manual_seed(PREP_SEEDS["prompt"]))
+    pipe = LatentSRPipeline(converted["unet"].to(torch.bfloat16), cn.to(torch.bfloat16),
+                            converted["vae"].to(torch.bfloat16), sd15_schedule(), prompt.to(torch.bfloat16),
+                            device="cuda")
+    rng = np.random.default_rng(64)
+    vol = prep_head(PREP_VOLUME, 65, peak=1000.0) + rng.normal(0, 5, PREP_VOLUME).astype(np.float32)
+    src = f"{tmp}/volume.nii"
+    write_nifti(src, vol, np.eye(4))
+    kw = dict(resolution=PREP_VOLUME[0], batch_size=PREP_VOLUME_BATCH, num_steps=LATENT_STEPS, seed=9)
+    n_batches = -(-PREP_VOLUME[2] // PREP_VOLUME_BATCH)
+    _, volume_heads = recording_heads(torch, lambda: super_resolve_volume(pipe, src, **kw))  # warm-up and capture
+    for key, calls in volume_heads.items():
+        heads[key] = heads.get(key, 0) + calls
+    runs, launches = {1: [], PREP_VOLUME_GROUP: []}, {}
+    for group in (1, PREP_VOLUME_GROUP, PREP_VOLUME_GROUP, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = super_resolve_volume(pipe, src, f"{tmp}/sr_{group}.nii", chain_group=group, **kw)
+        runs[group].append((time.perf_counter() - t0, img.data))
+    profs = {}
+    for group in (1, PREP_VOLUME_GROUP):
+        img, launches[group], profs[group] = replayed(
+            torch, lambda g=group: super_resolve_volume(pipe, src, chain_group=g, **kw), pipe, n_batches,
+            f"prep volume G={group}", None, latent_expect(pipe, PREP_VOLUME[0], LATENT_STEPS))
+        runs[group].append((None, img.data))
+        add_counts(totals, launches[group])
+    first = runs[1][0][1]
+    same = all(np.array_equal(d, first) for rs in runs.values() for _, d in rs)
+    ok = same and first.shape == PREP_VOLUME and bool(np.isfinite(first).all())
+    emit({"phase": "prep_volume", "shape": list(PREP_VOLUME), "batch": PREP_VOLUME_BATCH, "steps": LATENT_STEPS,
+          "weights": "converted .npz, bf16", "mode": pipe.mode,
+          "s_per_volume": {f"G={g}": [t for t, _ in rs if t is not None] for g, rs in runs.items()},
+          "launches": {f"G={g}": c for g, c in launches.items()},
+          "launches_from": "the graph's kernel nodes times the graph launches in a trace of one volume each",
+          "device_busy_ms": {f"G={g}": p["device_busy_ms"] for g, p in profs.items()},
+          "serial_equals_grouped": same, "out_range": [float(first.min()), float(first.max())], "ok": ok})
+    if not ok:
+        raise AssertionError("prep: the latent volume served serially differs from the grouped one")
+    del pipe, converted, cn
+    release_memory(torch, "prep volume")
+    for (shape, groups, eps, dtype), calls in sorted(heads.items(), key=lambda kv: -math.prod(kv[0][0])):
+        rec = check_gn(torch, F, dtype, "prep_head", shape, groups, timed=False, eps=eps)
+        emit({"phase": "prep_head", "shape": list(shape), "groups": groups, "eps": eps, "dtype": rec["dtype"],
+              "calls_in_capturing_calls": calls})
+    return totals
+
+
+def prep_bids(root, subjects):
+    """The BIDS tree of leg (b): ``64mT data/sub-*/ses-1/anat/*_T1w.nii.gz`` and ``3T data/sub-*/anat/
+    *_acq-highres_T1w.nii.gz`` (int16, as scanners store them)."""
+    import numpy as np
+
+    from mrisr_torch.data.nifti import write_nifti
+
+    for i in range(subjects):
+        sid = f"sub-{i + 1:04d}"
+        lr_dir, hr_dir = root / "64mT data" / sid / "ses-1" / "anat", root / "3T data" / sid / "anat"
+        lr_dir.mkdir(parents=True)
+        hr_dir.mkdir(parents=True)
+        write_nifti(lr_dir / f"{sid}_ses-1_T1w.nii.gz", prep_head(PREP_LR_GRID, 70 + i, 1800.0).astype(np.int16),
+                    np.diag([*PREP_LR_AFFINE, 1.0]))
+        write_nifti(hr_dir / f"{sid}_acq-highres_T1w.nii.gz", prep_head(PREP_HR_GRID, 80 + i).astype(np.int16))
+
+
+def prep_data(torch, tmp, beside):
+    """Leg (b): ``stats``, ``report``, ``preprocess-slices`` (card), ``export-png``, ``evaluate`` (card) over
+    the exported ``lr_images`` / ``hr_images``, and ``build-index`` over the DICOM tree; each command's
+    seconds, and which host work of the other legs ran beside it (``beside()``) at its start and end.  Then
+    ``preprocess-slices --cpu`` over a tree of subject 1 alone, and ``evaluate`` on the card and with
+    ``--cpu`` over every ``PREP_EVAL_STRIDE``-th pair, held to the card's (``PREP_SLICES_TOL``,
+    ``PREP_SCORES_RTOL``)."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+
+    from mrisr_torch import cli
+    from mrisr_torch.data.dicom import write_dicom_minimal
+
+    root, out = Path(tmp) / "bids", Path(tmp) / "prep"
+    out.mkdir()
+    prep_bids(root, PREP_SUBJECTS)
+    patients, slices, side = PREP_DICOM
+    rng = np.random.default_rng(90)
+    for p in range(patients):
+        d = Path(tmp) / "dicom" / f"p{p}"
+        d.mkdir(parents=True)
+        for s in range(slices):
+            write_dicom_minimal(d / f"{s:03d}.dcm", rng.integers(0, 4000, (side, side)), patient_id=f"p{p}",
+                                field_strength="3.0", series_desc="AX T2", instance_number=s + 1)
+    commands = (
+        ("stats", ["stats", "--data-dir", str(root), "--out", str(out / "stats.json")]),
+        ("report", ["report", "--data-dir", str(root), "--out", str(out / "report")]),
+        ("preprocess-slices", ["preprocess-slices", "--data-dir", str(root), "--out", str(out / "slices")]),
+        ("export-png", ["export-png", "--source", str(out / "slices" / "axial"), "--dest", str(out / "png")]),
+        ("evaluate", ["evaluate", "--gen", str(out / "png" / "lr_images"), "--gt", str(out / "png" / "hr_images"),
+                      "--state", str(out / "evaluate.json")]),
+        ("build-index", ["build-index", "--root", str(Path(tmp) / "dicom"), "--out", str(out / "index.json")]))
+    recs = {}
+    for name, argv in commands:
+        torch.cuda.synchronize()
+        at_start, t0 = beside(), time.perf_counter()
+        res = cli.run(argv)
+        torch.cuda.synchronize()
+        recs[name] = {"s": time.perf_counter() - t0, "result": res, "beside": [at_start, beside()]}
+    root1, few = Path(tmp) / "bids1", out / "png_few"
+    prep_bids(root1, 1)  # subject 1 of the tree above, alone
+    for folder in ("lr_images", "hr_images"):
+        (few / folder).mkdir(parents=True)
+        for f in sorted((out / "png" / folder).glob("*.png"))[::PREP_EVAL_STRIDE]:
+            os.link(f, few / folder / f.name)
+    few_args = ["--gen", str(few / "lr_images"), "--gt", str(few / "hr_images")]
+    cpu_s = {}
+    for name, argv in (("preprocess-slices --cpu", ["preprocess-slices", "--data-dir", str(root1), "--out",
+                                                    str(out / "slices_cpu"), "--cpu"]),
+                       ("evaluate few", ["evaluate", *few_args]),
+                       ("evaluate few --cpu", ["evaluate", *few_args, "--cpu"])):
+        t0 = time.perf_counter()
+        recs[name] = {"result": cli.run(argv)}
+        cpu_s[name] = time.perf_counter() - t0
+    slice_err, slices_ok, n_cpu_slices = 0.0, True, 0
+    for f in sorted((out / "slices_cpu" / "axial").glob("*.npz")):
+        with np.load(f) as cpu_npz, np.load(out / "slices" / "axial" / f.name) as card_npz:
+            for k in ("lr", "hr"):
+                slice_err = max(slice_err, float(np.abs(card_npz[k] - cpu_npz[k]).max()))
+                slices_ok &= bool(np.allclose(card_npz[k], cpu_npz[k], *PREP_SLICES_TOL))
+        n_cpu_slices += 1
+    n_slices = cli.PREPROCESS_SHAPE[2]  # slices per subject
+    stats, report = recs["stats"]["result"]["stats"], recs["report"]["result"]["stats"]
+    sliced, exported = recs["preprocess-slices"]["result"], recs["export-png"]["result"]["pairs"]
+    scores, index = recs["evaluate"]["result"]["results"], recs["build-index"]["result"]["index"]
+    few_card, few_cpu = (recs[k]["result"]["results"] for k in ("evaluate few", "evaluate few --cpu"))
+    score_rel = {k: abs(few_card[k] - few_cpu[k]) / abs(few_cpu[k]) for k in ("PSNR", "SSIM", "HFEN", "NMSE")}
+    card_vs_cpu = {"slices_compared": n_cpu_slices, "slices_max_abs_diff": slice_err, "slices_tol": PREP_SLICES_TOL,
+                   "scores_card": few_card, "scores_cpu": few_cpu, "scores_rel_diff": score_rel,
+                   "scores_rtol": PREP_SCORES_RTOL, "s": cpu_s}
+    outputs = {"stats": {"paired_scans": stats["paired_scans"], "subjects": stats["overlap"]["n_subjects_in_both"]},
+               "report": {"montages": len(report["montages"])},
+               "preprocess-slices": {"pairs": sliced["pairs"], "slices": sliced["slices"]},
+               "export-png": {"pairs": exported}, "evaluate": scores,
+               "build-index": {"patients": len(index), "slices": sum(len(c) for s in index.values()
+                                                                      for cs in s.values() for c in cs.values())}}
+    ok = (stats["paired_scans"] == PREP_SUBJECTS and len(report["montages"]) == PREP_SUBJECTS
+          and sliced["slices"] == [n_slices] * PREP_SUBJECTS and exported == n_slices * PREP_SUBJECTS
+          and scores is not None and scores["count"] == exported and all(math.isfinite(v) for v in scores.values())
+          and outputs["build-index"] == {"patients": patients, "slices": patients * slices}
+          and slices_ok and n_cpu_slices == n_slices
+          and few_card["count"] == few_cpu["count"] == -(-exported // PREP_EVAL_STRIDE)
+          and all(v <= PREP_SCORES_RTOL for v in score_rel.values()))
+    emit({"phase": "prep_data", "lr_grid": list(PREP_LR_GRID), "hr_grid": list(PREP_HR_GRID),
+          "subjects": PREP_SUBJECTS, "dicom": {"patients": patients, "slices": slices, "side": side},
+          "seconds": {k: r["s"] for k, r in recs.items() if "s" in r},
+          "beside": {k: r["beside"] for k, r in recs.items() if "beside" in r},
+          "s_per_volume": {"preprocess-slices": recs["preprocess-slices"]["s"] / (2 * PREP_SUBJECTS),
+                           "report": recs["report"]["s"] / (2 * PREP_SUBJECTS)},
+          "outputs": outputs, "card_vs_cpu": card_vs_cpu, "ok": ok})
+    if not ok:
+        raise AssertionError(f"prep: a data command's output is not what it should be, or the card's differs "
+                             f"from the CPU's: {outputs} {card_vs_cpu}")
+
+
+def prep_pair(torch, device="cuda"):
+    """Leg (c)'s pair on the 3 T grid: (HR, LR), the LR the HR under ``PREP_MOTION`` (warped on ``device``)
+    times the bias field ``PREP_BIAS``."""
+    import numpy as np
+
+    from mrisr_torch.data import registration
+
+    hr = prep_head(PREP_HR_GRID, 85)
+    rot = registration._euler_matrix(torch.tensor(PREP_MOTION[:3], dtype=torch.float64)).numpy()
+    inverse = np.concatenate([-np.asarray(PREP_MOTION[:3]), -rot.T @ np.asarray(PREP_MOTION[3:])])
+    moved = registration.warp_rigid(hr, torch.tensor(inverse, dtype=torch.float32, device=device), hr.shape)
+    g = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in PREP_HR_GRID], indexing="ij", sparse=True)
+    return hr, moved * np.exp(sum(c * x for c, x in zip(PREP_BIAS, g)))
+
+
+def prep_registration(torch, tmp, hr, lr, card_free, n4_done, device="cuda"):
+    """Leg (c): ``SliceDataset(do_n4=True, register_fn=...)`` over the pair (``prep_pair``): N4 seconds
+    (host; ``n4_done`` set when both volumes are corrected), the registration's on the card once
+    ``card_free`` is set, its 6 parameters against the motion and against the same registration on the CPU.
+    -> the record (``prep_check`` raises on a failed one)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from mrisr_torch.data import bias_correction, registration
+    from mrisr_torch.data.bids import get_data_dicts
+    from mrisr_torch.data.datasets import SliceDataset
+    from mrisr_torch.data.nifti import write_nifti
+
+    root = Path(tmp) / "pair"
+    (root / "64mT data" / "sub-0001" / "ses-1" / "anat").mkdir(parents=True)
+    (root / "3T data" / "sub-0001" / "anat").mkdir(parents=True)
+    write_nifti(root / "64mT data" / "sub-0001" / "ses-1" / "anat" / "sub-0001_ses-1_T1w.nii.gz", lr)
+    write_nifti(root / "3T data" / "sub-0001" / "anat" / "sub-0001_acq-highres_T1w.nii.gz", hr)
+    g = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in PREP_HR_GRID], indexing="ij", sparse=True)
+
+    timings, seen, local = {"n4_s": [], "n4_iterations": []}, {}, threading.local()
+    n4 = bias_correction.n4_bias_correction
+    smooth = bias_correction._smooth_field
+
+    def counted_smooth(*args):
+        local.iterations += 1
+        return smooth(*args)
+
+    def timed_n4(volume, *args, **kw):  # the dataset corrects its two volumes on a thread each
+        local.iterations = 0
+        t0 = time.perf_counter()
+        out = n4(volume, *args, **kw)
+        timings["n4_s"].append(time.perf_counter() - t0)
+        timings["n4_iterations"].append(local.iterations)
+        return out
+
+    def register(fixed, moving):
+        seen.update(fixed=fixed, moving=moving)
+        n4_done.set()
+        t_wait = time.perf_counter()
+        timings["n4_wall_s"] = t_wait - t_start
+        card_free.wait()
+        t0 = time.perf_counter()
+        timings["register_waited_s"] = t0 - t_wait
+        params = registration.rigid_params(fixed, moving, device=device)
+        params.cpu()  # waits for the device
+        t1 = time.perf_counter()
+        out = registration.warp_rigid(moving, params, fixed.shape)
+        timings.update(register_fit_s=t1 - t0, register_warp_s=time.perf_counter() - t1)
+        seen["params"] = params.cpu().numpy()
+        return out
+
+    bias_correction.n4_bias_correction, bias_correction._smooth_field = timed_n4, counted_smooth
+    try:
+        t_start = time.perf_counter()
+        ds = SliceDataset(get_data_dicts(root), cache_dir=Path(tmp) / "cache", do_n4=True, register_fn=register)
+        dataset_s = time.perf_counter() - t_start
+    finally:
+        bias_correction.n4_bias_correction, bias_correction._smooth_field = n4, smooth
+    t0 = time.perf_counter()
+    cpu = registration.rigid_params(seen["fixed"], seen["moving"], device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    card = seen["params"]
+    item = ds[len(ds) // 2]
+    inside = lr > 0  # the field N4 found in the LR against the one put in (log domain, inside the head)
+    found = np.log(lr[inside] / np.maximum(seen["moving"][inside], 1e-6))
+    put = sum(c * x for c, x in zip(PREP_BIAS, g)) * np.ones(lr.shape, np.float32)
+    put = put[inside]
+    motion_err = np.abs(card - np.asarray(PREP_MOTION))
+    ok = (len(ds) == PREP_HR_GRID[2] - 110 and bool(np.isfinite(item["lr"]).all())
+          and bool((motion_err[:3] <= PREP_MOTION_TOL[0]).all()) and bool((motion_err[3:] <= PREP_MOTION_TOL[1]).all())
+          and float(np.abs(card - cpu).max()) <= PREP_CPU_TOL)
+    return {"phase": "prep_registration", "grid": list(PREP_HR_GRID), "motion": list(PREP_MOTION),
+          "simpleitk": registration._has_sitk(), "card_params": card.tolist(), "cpu_params": cpu.tolist(),
+          "motion_abs_err": motion_err.tolist(), "motion_tol": list(PREP_MOTION_TOL),
+          "card_vs_cpu_max_abs": float(np.abs(card - cpu).max()), "card_vs_cpu_tol": PREP_CPU_TOL,
+          "cpu_register_fit_s": cpu_s, "dataset_s": dataset_s, "slices": len(ds), **timings,
+          "n4_field_log_std": float(found.std()), "bias_log_std": float(put.std()),
+          "n4_field_corr": float(np.corrcoef(found, put)[0, 1]), "ok": ok}
+
+
+def prep_check(rec):
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"prep: registration recovered {rec['card_params']} for {PREP_MOTION} (CPU "
+                             f"{rec['cpu_params']}), or the dataset is wrong ({rec['slices']} slices)")
+
+
+def phase_prep(torch):
+    """Weights converted and trained and served from, data prepared and scored, a pair registered after N4
+    (``prep_weights``, ``prep_data``, ``prep_registration``).  Legs (b) and (c) run on threads beside (a),
+    whose conversions are minutes of host work on one core, as is (c)'s N4 on two: (a) waits for (b) before
+    its card work, and (c)'s registration waits until (a) is done with the card.  -> the path's launches
+    (leg (a)'s)."""
+    import tempfile
+
+    hr, lr = prep_pair(torch)
+    card_free, n4_done, converted, data_done = (threading.Event() for _ in range(4))
+    result, errors = {}, {}
+
+    def leg(name, run, done=None):
+        try:
+            result[name] = run()
+        except BaseException as e:  # re-raised below, in the phase's own thread
+            errors[name] = e
+        finally:
+            if done is not None:
+                done.set()
+
+    beside = lambda: {"n4": not n4_done.is_set(), "conversions": not converted.is_set()}  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp_b, tempfile.TemporaryDirectory() as tmp_c:
+        threads = [threading.Thread(target=leg, args=("data", lambda: prep_data(torch, tmp_b, beside), data_done),
+                                    name="prep-data"),
+                   threading.Thread(target=leg, args=("registration", lambda: prep_registration(
+                       torch, tmp_c, hr, lr, card_free, n4_done)), name="prep-registration")]
+        for thread in threads:
+            thread.start()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                totals = prep_weights(torch, tmp, converted, data_done)
+        finally:
+            t0 = time.perf_counter()
+            converted.set()
+            card_free.set()
+            for thread in threads:
+                thread.join()
+        if errors:
+            raise next(iter(errors.values()))
+    prep_check({**result["registration"], "joined_after_s": time.perf_counter() - t0})
+    return totals
 
 KERNELS = [  # (name, route, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
@@ -2096,10 +2555,10 @@ def summary(recs, path_launches):
     return {"kernels": entries}
 
 
-PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "forward", "train", "cli",
-          "grad", "bench")
+PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "forward", "train",
+          "cli", "grad", "bench")
 # Paths whose launches the kernels line counts; serving paths launch no backward kernel.
-MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "train", "cli")
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "train", "cli")
 
 
 def main(argv) -> int:
@@ -2130,23 +2589,23 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     smi = phase_device(torch)
+    t0 = time.perf_counter()
     phase_build(torch)
-    recs = phase_kernels(torch) if "kernel" in phases else None
-    path_launches = {}
-    for name, run in (("chain", phase_chain), ("checkpoint", phase_checkpoint), ("volume", phase_volume),
-                      ("ddpm", phase_ddpm), ("latent", phase_latent), ("latent_train", phase_latent_train)):
-        if name in phases:
-            path_launches[name] = run(torch)
-    if "forward" in phases:
-        phase_forward(torch)
-    if "train" in phases:
-        path_launches["train"] = phase_train(torch)
-    if "cli" in phases:
-        path_launches["cli"] = phase_cli(torch)
-    if "grad" in phases:
-        phase_grad(torch)
-    if "bench" in phases:
-        phase_bench(torch)
+    emit({"phase": "seconds", "of": "build", "s": time.perf_counter() - t0})
+    recs, path_launches = None, {}
+    for name, run in (("kernel", phase_kernels), ("chain", phase_chain), ("checkpoint", phase_checkpoint),
+                      ("volume", phase_volume), ("ddpm", phase_ddpm), ("latent", phase_latent),
+                      ("latent_train", phase_latent_train), ("prep", phase_prep), ("forward", phase_forward),
+                      ("train", phase_train), ("cli", phase_cli), ("grad", phase_grad), ("bench", phase_bench)):
+        if name not in phases:
+            continue
+        t0 = time.perf_counter()
+        out = run(torch)
+        emit({"phase": "seconds", "of": name, "s": time.perf_counter() - t0})
+        if name == "kernel":
+            recs = out
+        elif name in MAIN_PATHS:
+            path_launches[name] = out
     if recs and set(path_launches) == set(MAIN_PATHS):
         summary_line = summary(recs, path_launches)
         emit(summary_line)

@@ -1,19 +1,30 @@
 """Command-line interface of the port (port of ``mrisr_tpu/cli.py``):
 
-    python -m mrisr_torch.cli train-cnn      [--config c.yaml] ...
-    python -m mrisr_torch.cli train-resdiff  [--config c.yaml] ...
-    python -m mrisr_torch.cli train-latent   --mode {controlnet,lora,adapter} ...
-    python -m mrisr_torch.cli build-cache    --out cache.bin ...
-    python -m mrisr_torch.cli sr-volume      --checkpoint DIR --input vol.nii.gz --output sr.nii
+    python -m mrisr_torch.cli train-cnn          [--config c.yaml] ...
+    python -m mrisr_torch.cli train-resdiff      [--config c.yaml] ...
+    python -m mrisr_torch.cli train-latent       --mode {controlnet,lora,adapter} ...
+    python -m mrisr_torch.cli build-cache        --out cache.bin ...
+    python -m mrisr_torch.cli sr-volume          --checkpoint DIR --input vol.nii.gz --output sr.nii
+    python -m mrisr_torch.cli convert-weights    --model unet --input m.safetensors --output unet.npz
+    python -m mrisr_torch.cli preprocess-slices  --data-dir BIDS --out DIR
+    python -m mrisr_torch.cli export-png         --source DIR/axial --dest DIR
+    python -m mrisr_torch.cli evaluate           --gen DIR --gt DIR [--state progress.json]
+    python -m mrisr_torch.cli build-index        --root DICOM --out index.json
+    python -m mrisr_torch.cli stats              --data-dir BIDS [--out stats.json]
+    python -m mrisr_torch.cli report             --data-dir BIDS --out DIR
 
 Flags, defaults and the ``--config`` precedence (a flag given on the command
 line > the config file > the parser's default) are the reference's.  Every
-command runs on the CUDA card, or raises without one; ``--cpu`` runs it on
-the CPU.  On the card the training step is one CUDA graph replayed per step
-(``train/steps.py``) and validation runs the graphed ``ResDiffPipeline``.
-Checkpoints are the port's own (``utils/checkpoint.py``); the JAX CLI's
-Orbax checkpoints are not read.  The reference's other subcommands are not
-ported yet and are not registered.
+command that computes on a device runs on the CUDA card, or raises without
+one; ``--cpu`` runs it on the CPU.  ``convert-weights``, ``export-png``,
+``build-index``, ``stats`` and ``report`` are host work.  On the card the
+training step is one CUDA graph replayed per step (``train/steps.py``) and
+validation runs the graphed ``ResDiffPipeline``.  Checkpoints are the port's
+own (``utils/checkpoint.py``); the JAX CLI's Orbax checkpoints are not read.
+``convert-weights`` writes the reference's ``.npz`` (a Flax-layout tree), which
+``train-latent --weights-dir`` reads in both packages.  The reference's
+``train-mnist``, ``parity``, ``parity-latent`` and ``bench`` are not ported
+yet and are not registered.
 
 A resumed run takes up the batch sequence where it stopped (the loader runs
 from the global batch number) and each step draws from
@@ -150,6 +161,42 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--chains", type=int, default=None,
                    help="chains per call (default env MRISR_VOLUME_CHAINS or 1)")
+
+    p = add("convert-weights", help="torch/diffusers checkpoint (.safetensors/.bin) -> flax params .npz")
+    p.add_argument("--model", required=True, choices=["vae", "unet", "controlnet", "clip", "clip-proj"])
+    p.add_argument("--input", required=True, help=".safetensors or torch .bin/.pt")
+    p.add_argument("--output", required=True, help="output .npz params file")
+    p.add_argument("--num-layers", type=int, default=None, help="CLIP tower depth")
+
+    p = add("preprocess-slices", help="BIDS NIfTI pairs -> per-slice npz")
+    _add_common(p)
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--axis", type=int, default=2)
+
+    p = add("export-png", help="npz slices -> PNG + metadata.jsonl")
+    p.add_argument("--source", required=True)
+    p.add_argument("--dest", required=True)
+
+    p = add("evaluate", help="folder-vs-folder MRI metrics")
+    p.add_argument("--gen", required=True)
+    p.add_argument("--gt", required=True)
+    p.add_argument("--state", default=None, help="progress file enabling resumable evaluation")
+    p.add_argument("--cpu", action="store_true", help="compute the metrics on the CPU (the default is the CUDA card)")
+
+    p = add("build-index", help="DICOM tree -> patient index JSON")
+    p.add_argument("--root", required=True)
+    p.add_argument("--out", required=True)
+
+    p = add("stats", help="BIDS dataset analytics (subject/session overlap)")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--out", default=None, help="optional JSON report path")
+
+    p = add("report", help="visual dataset report (LR|HR montages + stats)")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--axis", type=int, default=2)
+    p.add_argument("--max-subjects", type=int, default=None)
     return ap, subparsers
 
 
@@ -380,7 +427,8 @@ def _train_latent(args):
     """PEFT training of the latent family (the reference's hyperparameters: lr 1e-5, cosine schedule with 500
     warmup steps, AdamW, gradient-norm clip 1.0, CFG dropout 0.1), fp32 weights and states, a fixed random
     prompt embedding.  The modules are random from ``--seed`` unless ``--weights-dir`` holds converted
-    ``unet.npz`` / ``vae.npz``."""
+    ``unet.npz`` / ``vae.npz``.  ``--precision``, ``--remat`` and ``--val-every`` are parsed and not acted
+    on, as in the reference (a line on stderr names those set)."""
     import torch
 
     from mrisr_torch.data.loader import Loader
@@ -396,8 +444,11 @@ def _train_latent(args):
     from mrisr_torch.utils.checkpoint import CheckpointManager
     from mrisr_torch.utils.logging import MetricLogger
 
-    if args.precision != "float32" or args.remat or args.val_every:
-        raise SystemExit("train-latent trains in float32, without --remat or validation")
+    ignored = [flag for flag, on in ((f"--precision {args.precision}", args.precision != "float32"),
+                                     ("--remat", args.remat), (f"--val-every {args.val_every}", args.val_every))
+               if on]
+    if ignored:  # parsed and not acted on, as in the reference
+        print(f"train-latent: {', '.join(ignored)} not acted on; it trains in float32", file=sys.stderr)
     device = _device(args)
     cfg = LATENT_TINY if args.tiny else LATENT_SD15
     ctx_len, ctx_dim = cfg["context"]
@@ -546,12 +597,113 @@ def _sr_volume(args):
     return {"pipeline": pipe, "volume": out}
 
 
+def _convert_weights(args):
+    """The checkpoint read, converted to the reference's Flax-layout tree and saved as ``.npz``; the seconds
+    each part took."""
+    from mrisr_torch.data.safetensors_io import load_state_dict_any
+    from mrisr_torch.models.convert import CONVERTERS, save_params_npz
+
+    t0 = time.perf_counter()
+    sd = load_state_dict_any(args.input)
+    t1 = time.perf_counter()
+    conv = CONVERTERS[args.model]
+    params = conv(sd, num_layers=args.num_layers) if args.model in ("clip", "clip-proj") and args.num_layers else conv(sd)
+    t2 = time.perf_counter()
+    save_params_npz(args.output, params)
+    t3 = time.perf_counter()
+    print(f"converted {len(sd)} tensors -> {args.output}")
+    return {"tensors": len(sd), "read_s": t1 - t0, "convert_s": t2 - t1, "write_s": t3 - t2}
+
+
+PREPROCESS_SHAPE = (512, 512, 128)  # the reference's MONAI ResizeD
+
+
+def _preprocess_slices(args):
+    """Each BIDS pair read, reoriented to RAS, scaled from 0..1000 to [0, 1], resized to 512x512x128 on the
+    device with ``jax.image.resize``'s linear rule, and cut into ``axial/axial_vol_{i:03d}_{s:04d}.npz``."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from mrisr_torch.data.bids import get_data_dicts
+    from mrisr_torch.data.nifti import read_nifti, to_ras
+    from mrisr_torch.data.slices import scale_intensity_range, volume_to_slices
+    from mrisr_torch.ops.resize import resize_linear
+
+    device = _device(args)
+    pairs = get_data_dicts(args.data_dir)
+    print(f"found {len(pairs)} paired scans")
+    out = Path(args.out) / "axial"
+    out.mkdir(parents=True, exist_ok=True)
+    written = []
+    for i, pair in enumerate(pairs):
+        vols = {}
+        for k in ("lr", "hr"):
+            v = scale_intensity_range(to_ras(read_nifti(pair[k])).data, 0, 1000)
+            vols[k] = resize_linear(torch.from_numpy(v).to(device), PREPROCESS_SHAPE).cpu().numpy()
+        slices = volume_to_slices(vols["lr"], vols["hr"], args.axis)
+        for s, (lr_s, hr_s) in enumerate(slices):
+            np.savez_compressed(out / f"axial_vol_{i:03d}_{s:04d}.npz", lr=lr_s, hr=hr_s)
+        print(f"vol_{i:03d}: {vols['lr'].shape[args.axis]} slices")
+        written.append(len(slices))
+    return {"pairs": len(pairs), "slices": written}
+
+
+def _export_png(args):
+    from mrisr_torch.data.export import export_png_dataset
+
+    n = export_png_dataset(args.source, args.dest)
+    print(f"exported {n} pairs to {args.dest}")
+    return {"pairs": n}
+
+
+def _evaluate(args):
+    from mrisr_torch.eval.metrics import MRIEvaluator
+
+    return {"results": MRIEvaluator(device="cpu" if args.cpu else "cuda").evaluate_folders(
+        args.gen, args.gt, state_file=args.state)}
+
+
+def _build_index(args):
+    from mrisr_torch.data.datasets import build_patient_index
+
+    idx = build_patient_index(args.root, args.out)
+    print(f"indexed {len(idx)} patients -> {args.out}")
+    return {"index": idx}
+
+
+def _stats(args):
+    import json
+    from pathlib import Path
+
+    from mrisr_torch.data.bids import dataset_stats
+
+    report = dataset_stats(args.data_dir)
+    text = json.dumps(report, indent=2, sort_keys=True)
+    print(text)
+    if args.out:
+        Path(args.out).write_text(text)
+    return {"stats": report}
+
+
+def _report(args):
+    from mrisr_torch.data.report import visual_report
+
+    stats = visual_report(args.data_dir, args.out, args.axis, args.max_subjects)
+    print(f"wrote {len(stats['montages'])} montages + stats.json -> {args.out}")
+    return {"stats": stats}
+
+
 _COMMANDS = {"train-cnn": _train_cnn, "train-resdiff": _train_resdiff, "train-latent": _train_latent,
-             "build-cache": _build_cache, "sr-volume": _sr_volume}
+             "build-cache": _build_cache, "sr-volume": _sr_volume, "convert-weights": _convert_weights,
+             "preprocess-slices": _preprocess_slices, "export-png": _export_png, "evaluate": _evaluate,
+             "build-index": _build_index, "stats": _stats, "report": _report}
 
 
 def run(argv=None) -> dict:
-    """Parse ``argv`` and run the command; returns what it built (the train state and step, the pipeline)."""
+    """Parse ``argv`` and run the command; returns what it built or found (the train state and step, the
+    pipeline, a command's results)."""
     ap, subparsers = build_parser()
     args = ap.parse_args(argv)
     _apply_config(args, subparsers[args.cmd])

@@ -12,7 +12,7 @@
   crop, per-modality windows to [-1, 1] and a 512x512 pad or crop.
 
 Batching and shuffling are ``data/loader.py``'s.  The MNIST dataset is not
-ported yet, nor the N4 bias correction ``SliceDataset`` can apply.
+ported yet.
 """
 from __future__ import annotations
 
@@ -198,7 +198,8 @@ class SlicedPairDataset:
 class SliceDataset:
     """2-D slices of BIDS NIfTI pairs, cached per subject.
 
-    Per subject: read the pair -> optional registration (``register_fn``) ->
+    Per subject: read the pair -> optional N4 bias correction of both (``do_n4``) -> optional registration
+    (``register_fn``, e.g. ``data/registration.py::register_rigid``) ->
     slab crop [80 : D-30] along the slice axis -> per-modality clip -> [-1,
     1] -> cache npz; per slice a 512x512 pad or crop (pad -1).  ``sub-15``
     is skipped, as in the reference.
@@ -219,12 +220,11 @@ class SliceDataset:
         crop_start: int = 80,
         crop_end_margin: int = 30,
     ):
-        if do_n4:
-            raise NotImplementedError("N4 bias correction (data/bias_correction.py) is not ported")
         self.slice_axis = slice_axis
         self.cache_dir = Path(cache_dir)
         self.cache_dir.mkdir(parents=True, exist_ok=True)
         self.register_fn = register_fn
+        self.do_n4 = do_n4
         self.lr_clip = lr_clip
         self.hr_clip = hr_clip
         self.crop_start = crop_start
@@ -250,6 +250,13 @@ class SliceDataset:
                 return z["hr"], z["lr"]
         hr = read_nifti(item["hr"]).data.astype(np.float32)
         lr = read_nifti(item["lr"]).data.astype(np.float32)
+        if self.do_n4:  # on both volumes, before registration (the reference's order), a thread each
+            from concurrent.futures import ThreadPoolExecutor
+
+            from mrisr_torch.data.bias_correction import n4_bias_correction
+
+            with ThreadPoolExecutor(2) as pool:  # numpy's and scipy's array loops release the GIL
+                hr, lr = pool.map(n4_bias_correction, (hr, lr))
         if self.register_fn is not None and item["hr"] != item["lr"]:
             lr = self.register_fn(fixed=hr, moving=lr)
         hr = crop_slab(hr, self.slice_axis, self.crop_start, self.crop_end_margin)

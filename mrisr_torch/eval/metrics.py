@@ -14,6 +14,10 @@ default on the card).
 """
 from __future__ import annotations
 
+import glob
+import json
+import os
+
 import numpy as np
 import torch
 
@@ -126,3 +130,86 @@ def hfen_log(pred: np.ndarray, target: np.ndarray, sigma: float = 1.5) -> float:
     num = np.linalg.norm(lo_p - lo_t)
     den = np.linalg.norm(lo_t)
     return float(num / (den + 1e-8))
+
+
+class MRIEvaluator:
+    """Folder-vs-folder evaluation of generated against ground-truth images (port of
+    ``mrisr_tpu/eval/metrics.py::MRIEvaluator``, with its fix of the original's ``count += 13``: each pair
+    evaluated adds 1).
+
+    The files of each folder (``*.png``, ``*.jpg``, ``*.JPG``) are paired in sorted order and read as gray
+    images in [0, 1] (``data/png.py``: PNGs without PIL; a JPEG through PIL).  PSNR, SSIM and the squared
+    NMSE run on ``device`` (the CUDA card by default), HFEN (``hfen_log``) on the host.  A pair either of
+    whose files does not read is reported and skipped.
+    """
+
+    EXTS = ("*.png", "*.jpg", "*.JPG")
+
+    def __init__(self, verbose: bool = True, device: str | torch.device = "cuda"):
+        from mrisr_torch.device import resolve_device
+
+        self.verbose = verbose
+        self.device = resolve_device(device)
+
+    @staticmethod
+    def _load_gray(path: str) -> np.ndarray | None:
+        from mrisr_torch.data.png import read_gray
+
+        try:
+            return read_gray(path).astype(np.float32) / 255.0
+        except ImportError:
+            raise
+        except Exception:
+            return None
+
+    def evaluate_folders(self, generated_dir: str, ground_truth_dir: str, state_file: str | None = None):
+        """Mean PSNR, SSIM, HFEN and NMSE over the pairs, and their ``count``; ``None`` when no pair was
+        evaluated.  ``state_file``: a JSON progress file (names done and running sums), written after each
+        pair, from which a later call resumes."""
+        gen_files = sorted(f for ext in self.EXTS for f in glob.glob(os.path.join(generated_dir, ext)))
+        gt_files = sorted(f for ext in self.EXTS for f in glob.glob(os.path.join(ground_truth_dir, ext)))
+        if len(gen_files) != len(gt_files) and self.verbose:
+            print(f"Warning: file count mismatch. Gen: {len(gen_files)}, GT: {len(gt_files)}")
+
+        sums = {"PSNR": 0.0, "SSIM": 0.0, "HFEN": 0.0, "NMSE": 0.0}
+        count = 0
+        processed: set[str] = set()
+        if state_file and os.path.exists(state_file):
+            with open(state_file) as f:
+                st = json.load(f)
+            sums, count, processed = st["sums"], st["count"], set(st["processed"])
+            if self.verbose:
+                print(f"resuming: {count} pairs already evaluated")
+        for gen_path, gt_path in zip(gen_files, gt_files):
+            name = os.path.basename(gen_path)
+            if name in processed:
+                continue
+            img_gen, img_gt = self._load_gray(gen_path), self._load_gray(gt_path)
+            if img_gen is None or img_gt is None:
+                if self.verbose:
+                    print(f"Error reading pair: {gen_path}")
+                continue
+            tg = torch.from_numpy(img_gen)[None, None].to(self.device)
+            tt = torch.from_numpy(img_gt)[None, None].to(self.device)
+            sums["PSNR"] += float(psnr(tg, tt))
+            sums["SSIM"] += float(ssim(tg, tt))
+            sums["HFEN"] += hfen_log(img_gen, img_gt)
+            sums["NMSE"] += float(nmse(tg, tt, squared=True))
+            count += 1
+            processed.add(name)
+            if state_file:
+                tmp = state_file + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({"sums": sums, "count": count, "processed": sorted(processed)}, f)
+                os.replace(tmp, state_file)
+
+        if count == 0:
+            if self.verbose:
+                print("No images processed.")
+            return None
+        results = {k: v / count for k, v in sums.items()}
+        results["count"] = count
+        if self.verbose:
+            print(f"PSNR {results['PSNR']:.4f} dB | SSIM {results['SSIM']:.4f} | NMSE {results['NMSE']:.4f} | "
+                  f"HFEN {results['HFEN']:.4f} ({count} pairs)")
+        return results

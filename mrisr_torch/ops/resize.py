@@ -9,7 +9,10 @@ The reference stack mixes three resampling conventions, each reproduced here:
   antialiased on downscale, the window shrunk to valid pixels and
   renormalised (:func:`pil_resize_like`);
 * ``scipy.ndimage.gaussian_filter`` with its 'reflect' boundary
-  (:func:`gaussian_blur`).
+  (:func:`gaussian_blur`);
+* ``jax.image.resize(..., "linear")`` in any rank: the triangle kernel,
+  antialiased when it shrinks (:func:`resize_linear`; the data preparation's
+  3-D resizes and the registration's coarse grid).
 
 Each resize is two dense ``[out, in]`` weight matrices built in numpy exactly
 as the reference builds them (:func:`_resize_weights`) and applied as two
@@ -159,6 +162,37 @@ def resize2d_np(
     if h_in != out_hw[0]:
         wh = _weights64(h_in, out_hw[0], kernel, antialias, edge)
         y = np.matmul(wh, y.astype(np.float64)).astype(np.float32)
+    return y
+
+
+@functools.lru_cache(maxsize=256)
+def _jax_linear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """``[out_size, in_size]`` float32 weights of ``jax.image.resize(..., "linear")`` along one axis, computed
+    as JAX computes them in float32: the triangle kernel at the half-pixel sample points, stretched by the
+    shrink factor (antialiased), each output's weights divided by their sum, and zero for a sample that
+    lies outside the input."""
+    inv = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv, np.float32(1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, 0).T.astype(np.float32))
+
+
+def resize_linear(x: torch.Tensor, out_shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.image.resize(x, out_shape, "linear")`` on a tensor of any rank and device, in float32: one
+    weight matrix product along each axis whose size changes (an axis that keeps its size is left alone,
+    as in JAX)."""
+    if len(out_shape) != x.ndim:
+        raise ValueError(f"out_shape {tuple(out_shape)} does not have x's rank {x.ndim}")
+    y = x.float()
+    for d, (n_in, n_out) in enumerate(zip(x.shape, out_shape)):
+        if n_in != n_out:
+            w = torch.from_numpy(_jax_linear_weights(n_in, n_out)).to(y.device)
+            y = torch.movedim(torch.tensordot(w, y, dims=([1], [d])), 0, d)
     return y
 
 

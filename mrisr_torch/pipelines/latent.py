@@ -189,7 +189,7 @@ class LatentSRPipeline:
         self,
         lr: torch.Tensor,
         generator: torch.Generator | None = None,
-        num_inference_steps: int = 20,
+        num_steps: int = 20,
         noise: ChainNoise | None = None,
     ) -> torch.Tensor:
         """LR ``[B, H, W, 1]`` in [-1, 1] -> ``[B, H, W, 3]`` in [-1, 1].
@@ -200,19 +200,19 @@ class LatentSRPipeline:
         self._check(lr)
         shape = self.latent_shape(lr)
         if noise is None:
-            noise = ChainNoise.draw(shape, num_inference_steps, generator, lr.device)
+            noise = ChainNoise.draw(shape, num_steps, generator, lr.device)
         elif (tuple(noise.vae.shape), tuple(noise.start.shape), tuple(noise.steps.shape)) != (
-                shape, shape, (num_inference_steps, *shape)):
-            raise ValueError(f"noise does not fit latents {shape} and {num_inference_steps} steps")
+                shape, shape, (num_steps, *shape)):
+            raise ValueError(f"noise does not fit latents {shape} and {num_steps} steps")
         if self.cuda_graph:
-            return self._replay(lr, noise, num_inference_steps)
-        return self._chain(lr, noise, num_inference_steps)
+            return self._replay(lr, noise, num_steps)
+        return self._chain(lr, noise, num_steps)
 
     def super_resolve_many(
         self,
         lr_stack: torch.Tensor,
         generator: torch.Generator | Sequence[torch.Generator] | None = None,
-        num_inference_steps: int = 20,
+        num_steps: int = 20,
     ) -> torch.Tensor:
         """G chains back to back: ``[G, B, H, W, 1]`` in, ``[G, B, H, W, 3]`` out.  ``generator`` is one
         generator every chain draws from in turn, or one per chain."""
@@ -221,7 +221,7 @@ class LatentSRPipeline:
         gens = generator if isinstance(generator, Sequence) else [generator] * lr_stack.shape[0]
         if len(gens) != lr_stack.shape[0]:
             raise ValueError(f"{len(gens)} generators for {lr_stack.shape[0]} chains")
-        return torch.stack([self.super_resolve(lr, g, num_inference_steps) for lr, g in zip(lr_stack, gens)])
+        return torch.stack([self.super_resolve(lr, g, num_steps) for lr, g in zip(lr_stack, gens)])
 
     def super_resolve_group(
         self,

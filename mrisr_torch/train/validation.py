@@ -5,33 +5,18 @@ with the current (EMA) parameters; every ``every`` steps it samples a fixed
 validation batch, computes PSNR / SSIM / NMSE / HFEN with
 ``eval/metrics.py`` on [0, 1]-mapped images, writes an ``lr | sr | hr`` PNG
 strip per image, and returns the metrics for the logger.  The PNG writer is
-the port's own (zlib, 8-bit grayscale), so no PIL is needed.
+the port's own (``data/png.py``), so no PIL is needed.
 """
 from __future__ import annotations
 
-import struct
-import zlib
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
 
+from mrisr_torch.data.png import write_png_gray
 from mrisr_torch.eval.metrics import compute_mri_metrics
-
-
-def write_png_gray(path: str | Path, pixels: np.ndarray) -> None:
-    """Write a ``[H, W]`` uint8 array as an 8-bit grayscale PNG."""
-    pixels = np.ascontiguousarray(pixels, np.uint8)
-    h, w = pixels.shape
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
-
-    raw = b"".join(b"\x00" + pixels[r].tobytes() for r in range(h))  # filter type 0 on every row
-    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-    Path(path).write_bytes(png)
 
 
 def strip_pixels(*images: np.ndarray) -> np.ndarray:

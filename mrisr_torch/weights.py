@@ -91,15 +91,49 @@ def load_flax_checkpoint(module: nn.Module, path: str | Path) -> dict:
     return tree
 
 
-def load_params_npz(path: str | Path) -> dict:
-    """A Flax param tree from a converted ``.npz`` (flat ``"a/b/c"`` keys, as the JAX package's
-    ``save_params_npz`` writes them), for :func:`load_flax_params`."""
+def flat_to_params(flat: Mapping, sep: str = "/") -> dict:
+    """Flat ``{"a/b/c": array}`` -> the nested tree."""
     tree: dict = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split(sep)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(v)
+    return tree
+
+
+def load_params_npz(path: str | Path) -> dict:
+    """A Flax param tree from a converted ``.npz`` (flat ``"a/b/c"`` keys, as ``convert-weights`` writes
+    them in both packages), for :func:`load_flax_params`."""
     with np.load(path) as z:
-        for key in z.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = np.asarray(z[key])
+        return flat_to_params({k: z[k] for k in z.files})
+
+
+def _source(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    """(Flax leaf name, value in the Flax layout) for parameter ``name`` of ``mod``: :func:`_target`'s
+    inverse."""
+    if name == "weight" and isinstance(mod, nn.Conv2d):
+        return "kernel", arr.transpose(2, 3, 1, 0)
+    if name == "weight" and isinstance(mod, nn.Linear):
+        return "kernel", arr.T
+    if name == "weight" and isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
+        return "scale", arr
+    if name == "weight" and isinstance(mod, nn.Embedding):
+        return "embedding", arr
+    return name, arr
+
+
+def flax_params(module: nn.Module) -> dict:
+    """The Flax param tree (float32 numpy, without the ``params`` root) that :func:`load_flax_params` would
+    fill ``module`` from: its inverse."""
+    tree: dict = {}
+    for name, p in module._parameters.items():
+        if p is not None:
+            key, arr = _source(module, name, p.detach().float().cpu().numpy())
+            tree[key] = arr
+    for name, child in module._modules.items():
+        sub = flax_params(child) if child is not None else {}
+        if sub:
+            tree[name] = sub
     return tree

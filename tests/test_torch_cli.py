@@ -113,9 +113,10 @@ def test_train_cnn_build_cache_and_train_resdiff_from_the_cache(tmp_path):
 def test_cli_help_lists_the_ported_commands():
     out = subprocess.run([sys.executable, "-m", "mrisr_torch.cli", "--help"], cwd=REPO, capture_output=True,
                          text=True, check=True).stdout
-    for cmd in ("train-cnn", "train-resdiff", "train-latent", "build-cache", "sr-volume"):
+    for cmd in ("train-cnn", "train-resdiff", "train-latent", "build-cache", "sr-volume", "convert-weights",
+                "preprocess-slices", "export-png", "evaluate", "build-index", "stats", "report"):
         assert cmd in out
-    assert "train-mnist" not in out and "evaluate" not in out
+    assert "train-mnist" not in out
 
 
 # ---------------------------------------------------------------------------

@@ -173,7 +173,7 @@ def test_fastmri_dataset_items_match_jax(tmp_path):
 
 def test_sliced_pair_and_bids_slice_datasets_match_jax(tmp_path):
     """Per-slice npz pairs: equal items.  BIDS NIfTI pairs (written by the port, read by each package's
-    reader): equal slice metadata and items, and the subject cache reads back the same."""
+    reader): equal slice metadata and items, and the subject cache reads back the same; with N4 too."""
     rng = np.random.default_rng(8)
     (tmp_path / "npz" / "axial").mkdir(parents=True)
     for i in range(3):
@@ -201,8 +201,14 @@ def test_sliced_pair_and_bids_slice_datasets_match_jax(tmp_path):
             assert a["hr"].shape == (512, 512, 1) and (a["txt"], a["subject_id"]) == (b["txt"], b["subject_id"])
             np.testing.assert_allclose(a["hr"], b["hr"], atol=1e-6)
             np.testing.assert_allclose(a["lr"], b["lr"], atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        t_ds.SliceDataset(pairs, cache_dir=tmp_path / "n4", do_n4=True)
+    # With N4 (the same numpy and scipy code in both packages) before the slab crop: equal items.
+    got = t_ds.SliceDataset(pairs[:1], cache_dir=tmp_path / "t_n4", do_n4=True)
+    want = j_ds.SliceDataset(pairs[:1], cache_dir=tmp_path / "j_n4", do_n4=True)
+    assert len(got) == len(want) == 120 - 80 - 30
+    for i in (0, len(got) - 1):
+        np.testing.assert_allclose(got[i]["hr"], want[i]["hr"], atol=1e-6)
+        np.testing.assert_allclose(got[i]["lr"], want[i]["lr"], atol=1e-6)
+        assert not np.array_equal(got[i]["lr"], t_ds.SliceDataset(pairs[:1], cache_dir=tmp_path / "t_cache")[i]["lr"])
 
 
 # ---------------------------------------------------------------------------

@@ -134,7 +134,7 @@ def test_latent_pipeline_matches_jax(mode, tiny_towers):
     start, step = _jax_chain_noise(key, shape, PIPE_STEPS)
     noise = t_latent.ChainNoise(nchw(vae_noise), nchw(start),
                                 torch.from_numpy(np.ascontiguousarray(step.transpose(0, 1, 4, 2, 3))))
-    got = tpipe.super_resolve(torch.from_numpy(lr), num_inference_steps=PIPE_STEPS, noise=noise)
+    got = tpipe.super_resolve(torch.from_numpy(lr), num_steps=PIPE_STEPS, noise=noise)
     assert tuple(got.shape) == (PIPE_BATCH, PIPE_SIZE, PIPE_SIZE, 3) and bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=1e-3)
 
@@ -142,7 +142,7 @@ def test_latent_pipeline_matches_jax(mode, tiny_towers):
     a = tpipe.super_resolve(torch.from_numpy(lr), torch.Generator().manual_seed(9), PIPE_STEPS)
     drawn = t_latent.ChainNoise.draw(tpipe.latent_shape(torch.from_numpy(lr)), PIPE_STEPS,
                                      torch.Generator().manual_seed(9), "cpu")
-    assert torch.equal(a, tpipe.super_resolve(torch.from_numpy(lr), num_inference_steps=PIPE_STEPS, noise=drawn))
+    assert torch.equal(a, tpipe.super_resolve(torch.from_numpy(lr), num_steps=PIPE_STEPS, noise=drawn))
     many = tpipe.super_resolve_group(torch.from_numpy(lr)[None], [torch.Generator().manual_seed(9)], PIPE_STEPS)
     assert torch.equal(many[0], a)
     vis = t_latent.decode_to_vis(got)
@@ -213,7 +213,7 @@ def test_bf16_latent_chain_follows_the_reference_dtypes(tiny_towers):
                                ("unet", modules[0].conv_in), ("controlnet", modules[1].conv_in),
                                ("condition", modules[1].controlnet_cond_embedding.conv_in))]
     got = tpipe.super_resolve(torch.from_numpy(np.asarray(lr, np.float32)).bfloat16(),
-                              num_inference_steps=PIPE_STEPS, noise=noise)
+                              num_steps=PIPE_STEPS, noise=noise)
     for h in hooks:
         h.remove()
     assert seen == {"encoder": torch.bfloat16, "condition": torch.bfloat16, "unet": torch.float32,
