@@ -99,8 +99,8 @@ result.  Each phase prints JSON lines:
 13. ``grad``: one full-width bs-1 fp32 step's gradients on the card (TF32 off,
    dropout 0, kernels on) against the CPU plain path, per parameter; and
    the same for the parity-harness UNet;
-14. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, and
-   ``--pipeline latent``) in a subprocess, its JSON line echoed;
+14. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, 3
+   timed calls each, and ``--pipeline latent``) in a subprocess, its JSON line echoed;
 15. ``prep`` (run after ``latent_train``): the workflow around the model with
    no JAX.  (a) SD1.5-width SDUNet and AutoencoderKL (fp32, fixed seeds)
    exported to diffusers-named ``.safetensors`` and through ``convert-weights``
@@ -118,12 +118,26 @@ result.  Each phase prints JSON lines:
    card: N4 and registration seconds, the 6 parameters against the motion
    (``PREP_MOTION_TOL``) and against the CPU's (``PREP_CPU_TOL``); on a
    thread beside (a) and (b), its registration after them.
+16. ``parity`` (run after ``cli``): the fidelity harness and the MNIST trainer through the command line in
+   this process, fp32.  (a) ``parity`` at PARITY_r07_256.json's configuration (256^2, inner 32, bs 8,
+   cosine, EMA 0.999, seeds 2 and 3, chains of 10, 50 and 250 steps, the MNIST leg on), depth cut as
+   ``PARITY_CUTS`` names (the longest chain 100 steps among them): seconds a leg, ms a training step (its
+   graph's capture included), seconds a chain by profile and length, the report's rows; each 50-step
+   chain's starting noise bitwise the exact profile's; one traced replay a profile (B1 100, B3 1450 from
+   the graph's nodes).  The stage-2 loop (``train_phantom_resdiff``) resumed from its ``--ckpt`` equals the
+   uninterrupted run bitwise (4 steps, deterministic cuDNN; the resumed run traced whole: B1, B2a, B2b 2 and
+   B3 29 a step).  (b)
+   ``parity-latent`` at PARITY_r09.json's widths (256^2, VAE 32, UNet 64, cached latents, x0 prediction,
+   20 steps, every leg on), cut as ``PARITY_LATENT_CUTS`` names: no B1 (every attention dense at 4096
+   keys).  (c) ``train-mnist`` in both modes and the ddpm run resumed (traced whole: B3 15 a step), bitwise
+   against an uninterrupted run.  B3, B1 and the B2 pair against their plain versions at every (shape,
+   dtype) the legs launched them at, recorded by the wrappers (``ops.recording_shapes``).
 
 Each phase's seconds follow it (``"phase": "seconds"``).  Each main path (chain, checkpoint, volume, ddpm,
-latent, latent_train, prep, train, cli) is driven with
+latent, latent_train, prep, train, cli, parity) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  A
 replayed CUDA graph calls no wrapper: a graphed path (chain, checkpoint,
-volume, latent, latent_train, prep, train, cli) is traced, its wrappers' counts must stay 0, and its
+volume, latent, latent_train, prep, train, cli, parity) is traced, its wrappers' counts must stay 0, and its
 launches are the captured graph's kernel nodes times the graph launches in the
 trace, held equal to what the path must launch (``replayed``).
 Then the kernels summary line, the nvidia-smi line, and last the result line.
@@ -132,7 +146,9 @@ Then the kernels summary line, the nvidia-smi line, and last the result line.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import gc
 import json
 import math
 import subprocess
@@ -1154,7 +1170,9 @@ def phase_ddpm(torch):
     return counts
 
 
-BENCH_RUNS = (["--fast", "8"], ["--fast", "0"], ["--pipeline", "latent", "--repeats", "1"])
+# Three timed calls a ResDiff profile (the bench's default is 6): the run's time limit, not the numbers, sets it.
+BENCH_RUNS = (["--fast", "8", "--repeats", "3"], ["--fast", "0", "--repeats", "3"],
+              ["--pipeline", "latent", "--repeats", "1"])
 
 
 def release_memory(torch, after):
@@ -1658,23 +1676,20 @@ def latent_expect(pipe, size, steps):
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "group_norm_silu": steps * per_step + vae}
 
 
-def recording_heads(torch, run):
-    """``run()`` with every B3 call of the SD modules recorded: (result, {(shape, groups, eps, dtype): calls})."""
-    from mrisr_torch.models import sd_layers
+def recording_shapes(run):
+    """``run()`` with the arguments of every kernel launch through a wrapper recorded
+    (``ops.recording_shapes``): (result, {wrapper: {key: calls}})."""
+    from mrisr_torch import ops
 
-    seen, launch = {}, sd_layers.group_norm_silu
-
-    def record(x, weight, bias, groups, eps):
-        key = (tuple(x.shape), groups, eps, x.dtype)
-        seen[key] = seen.get(key, 0) + 1
-        return launch(x, weight, bias, groups, eps)
-
-    sd_layers.group_norm_silu = record
-    try:
+    with ops.recording_shapes() as seen:
         out = run()
-    finally:
-        sd_layers.group_norm_silu = launch
-    return out, seen
+    return out, {name: dict(c) for name, c in seen.items()}
+
+
+def recording_heads(run):
+    """``run()`` with every B3 launch recorded: (result, {(shape, groups, eps, dtype): calls})."""
+    out, seen = recording_shapes(run)
+    return out, seen["group_norm_silu"]
 
 
 def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=False, eager_too=True):
@@ -1729,7 +1744,7 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         t0 = time.perf_counter()
-        (eager_out, heads), eager_counts = counted(torch, lambda: recording_heads(torch, erun))
+        (eager_out, heads), eager_counts = counted(torch, lambda: recording_heads(erun))
         end.record()
         torch.cuda.synchronize()
         eager_ms, eager_event_ms = [(time.perf_counter() - t0) * 1e3], [start.elapsed_time(end)]
@@ -1946,7 +1961,7 @@ def latent_train_case(torch, unet, cn, vae, prompt, empty, mode, size, batch, ca
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if i == 0:
-            (out, metrics), heads = recording_heads(torch, lambda: graphed(state, data, gen))
+            (out, metrics), heads = recording_heads(lambda: graphed(state, data, gen))
         else:
             out, metrics = graphed(state, data, gen)
         torch.cuda.synchronize()
@@ -2202,7 +2217,7 @@ def prep_weights(torch, tmp, converted, data_done):
     # ``train-latent`` reads the .npz into fresh towers (``load_flax_params``), which it keeps frozen: those
     # are the reloaded modules, held bitwise to the originals.
     argv = ["train-latent", *PREP_TRAIN, "--weights-dir", str(weights), "--out", f"{tmp}/tl"]
-    (res, counts, trace), heads = recording_heads(torch, lambda: traced_command(
+    (res, counts, trace), heads = recording_heads(lambda: traced_command(
         torch, "train-latent --weights-dir", lambda: cli.run(argv), lambda r: r["step"].graph, expect, 2))
     add_counts(totals, counts)
     state = res["state"]
@@ -2231,7 +2246,7 @@ def prep_weights(torch, tmp, converted, data_done):
     write_nifti(src, vol, np.eye(4))
     kw = dict(resolution=PREP_VOLUME[0], batch_size=PREP_VOLUME_BATCH, num_steps=LATENT_STEPS, seed=9)
     n_batches = -(-PREP_VOLUME[2] // PREP_VOLUME_BATCH)
-    _, volume_heads = recording_heads(torch, lambda: super_resolve_volume(pipe, src, **kw))  # warm-up and capture
+    _, volume_heads = recording_heads(lambda: super_resolve_volume(pipe, src, **kw))  # warm-up and capture
     for key, calls in volume_heads.items():
         heads[key] = heads.get(key, 0) + calls
     runs, launches = {1: [], PREP_VOLUME_GROUP: []}, {}
@@ -2529,6 +2544,347 @@ def phase_prep(torch):
     prep_check({**result["registration"], "joined_after_s": time.perf_counter() - t0})
     return totals
 
+# Phase ``parity``: the fidelity harness through the command line.  (a) ``parity`` at PARITY_r07_256.json's
+# configuration (256^2, the main path's UNet, bs 8, cosine, EMA 0.999, seeds 2 and 3, the reference's chain
+# lengths at 256^2), fp32 throughout; (b) ``parity-latent`` at PARITY_r09.json's widths; (c) ``train-mnist``.
+# Only depth and set sizes are cut, each named in the phase's output beside the record's value.
+PARITY_ARGV = ["parity", "--resolution", str(SIZE), "--inner-channel", "32", "--batch", str(BATCH),
+               "--lr-schedule", "cosine", "--ema-decay", "0.999", "--sample-seeds", "2,3"]
+PARITY_CUTS = {"--sample-steps": ("10,50,250", "10,50,100"), "--n-train": (384, 64),
+               "--phantom-steps": (2000, 400), "--resdiff-steps": (60000, 100), "--chunk-steps": (250, 100),
+               "--eval-every": (2500, 100), "--n-test": (64, 8), "--mnist-steps": ("not run (--skip-mnist)", 100)}
+PARITY_LATENT_ARGV = ["parity-latent", "--resolution", str(SIZE), "--vae-width", "32", "--unet-width", "64",
+                      "--cache-latents", "--prediction-type", "sample", "--inference-steps", "20",
+                      "--sample-seeds", "2,3", "--batch", str(BATCH)]
+PARITY_LATENT_CUTS = {"--n-train": (512, 16), "--n-test": (32, 8), "--vae-steps": (8000, 2),
+                      "--base-steps": (10000, 2), "--cn-steps": (8000, 2), "--lora-steps": (5000, 2),
+                      "--adapter-steps": (4000, 2), "--cn-lora-steps": (6000, 2), "--chunk-steps": (250, 2),
+                      "--vae-chunk-steps": (64, 2), "--extra-sample-steps": ("50", "")}
+PARITY_MNIST_STEPS, PARITY_MNIST_RESUME = 20, 10  # train-mnist: steps a mode; the ddpm run resumed for 10 more
+MNIST_LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                  "group_norm_silu": 15}  # a step: 7 ResnetBlocks x 2 ConvBlock heads + the final GN -> swish
+PARITY_RESUME = (4, 2)  # the resume check: steps of the uninterrupted run, and where the other run stops
+
+
+def _cut_argv(cuts):
+    return [x for flag, (_, now) in cuts.items() if now != "" for x in (flag, str(now))]
+
+
+def _profile_name(unet):
+    pool, tokens = unet.ca_kv_pool, unet.ca_kv_pool_min_tokens
+    return "exact" if not pool else f"kv_pool_{pool}" if tokens <= 4096 else f"selective_{pool}"
+
+
+class _ParityRecorder:
+    """Wraps ``ResDiffPipeline.super_resolve`` and the harness's legs and training for leg (a): each chain's
+    seconds by profile and length (the first of a shape and length captures its graph), each 50-step chain's
+    starting noise by profile, and one traced 50-step replay a profile (``replayed``: the graph's kernel
+    nodes, the graph launches in the trace, the trace's kernel records)."""
+
+    def __init__(self, torch):
+        from mrisr_torch.eval import parity
+        from mrisr_torch.pipelines.resdiff import ResDiffPipeline
+
+        self.torch, self.parity, self.cls = torch, parity, ResDiffPipeline
+        self.chains, self.noise, self.traces, self.launches, self.legs, self.train = {}, {}, {}, {}, {}, []
+        self.saved = {}
+
+    def __enter__(self):
+        torch, rec = self.torch, self
+        real = self.cls.super_resolve
+
+        def super_resolve(pipe, lr, generator=None, x_T=None, num_steps=50, spacing="trailing"):
+            name = _profile_name(pipe.unet)
+            key = (tuple(lr.shape), lr.dtype, num_steps, spacing)
+            captured = key in pipe.graphs
+            if x_T is not None and num_steps == STEPS:
+                rec.noise.setdefault(name, []).append(x_T.clone())
+            run = lambda: real(pipe, lr, generator, x_T, num_steps, spacing)  # noqa: E731
+            if captured and num_steps == STEPS and name not in rec.traces:
+                out, launches, prof = replayed(torch, run, _OneGraph(pipe.graphs[key]), 1, f"parity {name}",
+                                               expect=chain_expect(STEPS))
+                rec.traces[name] = {k: prof[k] for k in ("graph_kernel_nodes", "graph_launches", "kernel_events",
+                                                         "trace_missed", "device_busy_ms", "profiled_chain_ms")}
+                add_counts(rec.launches, launches)
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            rec.chains.setdefault((name, num_steps, "capture" if not captured else "replay"), []).append(
+                time.perf_counter() - t0)
+            return out
+
+        def timed_leg(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                rec.legs[name] = time.perf_counter() - t0
+                return out
+            return run
+
+        def timed_many(fn):
+            def make(*a, **kw):
+                many = fn(*a, **kw)
+
+                def run(state, sr_all, hr_all, idx, step_ids, seed):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = many(state, sr_all, hr_all, idx, step_ids, seed)
+                    torch.cuda.synchronize()
+                    rec.train.append({"steps": len(idx), "s": time.perf_counter() - t0})
+                    return out
+                return run
+            return make
+
+        p = self.parity
+        self.saved = {"super_resolve": real, "make_resdiff_train_many": p.make_resdiff_train_many,
+                      **{n: getattr(p, n) for n in ("run_mnist", "run_phantom_cnn", "run_phantom_resdiff")}}
+        self.cls.super_resolve = super_resolve
+        p.make_resdiff_train_many = timed_many(self.saved["make_resdiff_train_many"])
+        for n in ("run_mnist", "run_phantom_cnn", "run_phantom_resdiff"):
+            setattr(p, n, timed_leg(n, self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.super_resolve = self.saved.pop("super_resolve")
+        for n, fn in self.saved.items():
+            setattr(self.parity, n, fn)
+
+
+def parity_resume(torch):
+    """``train_phantom_resdiff`` (the harness's stage-2 loop) at leg (a)'s configuration, 4 steps in chunks of 2
+    with ``--ckpt`` at each, against 2 steps and then a resume from the checkpoint to 4 (deterministic cuDNN):
+    every tensor of the state bitwise equal.  The resumed run is traced whole (``traced_command``): the
+    training step's graph, its kernel nodes and its 2 replays.  -> (record, launches)."""
+    import tempfile
+
+    from mrisr_torch.diffusion.schedules import resdiff_schedule
+    from mrisr_torch.eval import parity
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+    from mrisr_torch.models.simple_cnn import SimpleCNN
+    from mrisr_torch.train import steps as steps_mod
+    from mrisr_torch.train.state import cosine_decay_schedule, create_train_state, make_optimizer
+
+    total, cut = PARITY_RESUME
+    lr_all, hr_all = parity._phantom_batches(16, SIZE)
+    torch.manual_seed(0)
+    cnn = SimpleCNN(device="cuda")
+    with torch.no_grad():
+        sr = cnn(torch.from_numpy(lr_all).cuda().permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+    hr = torch.from_numpy(hr_all).cuda()
+    torch.manual_seed(1)
+    init = {k: v.detach().clone() for k, v in ResDiffUNet(image_size=SIZE, inner_channel=32, norm_groups=8,
+                                                          device="cuda").named_parameters()}
+    graphs = []
+
+    class Recorded(steps_mod.GraphedStep):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            graphs.append(self)
+
+    def fresh():
+        unet = ResDiffUNet(image_size=SIZE, inner_channel=32, norm_groups=8, device="cuda")
+        parity._load_(unet, init)
+        tx = make_optimizer(cosine_decay_schedule(2e-4, total, alpha=0.05))
+        return unet, create_train_state(unet, tx, ema_decay=0.999, device="cuda")
+
+    sched = resdiff_schedule(1000)
+    torch.backends.cudnn.deterministic = True
+    real = steps_mod.GraphedStep
+    steps_mod.GraphedStep = Recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            unet, whole = fresh()
+            t0 = time.perf_counter()
+            whole, _ = parity.train_phantom_resdiff(unet, sched, whole, sr, hr, BATCH, total, cut, cut,
+                                                    f"{tmp}/whole.pt")
+            whole_s = time.perf_counter() - t0
+            unet, part = fresh()
+            parity.train_phantom_resdiff(unet, sched, part, sr, hr, BATCH, cut, cut, cut, f"{tmp}/part.pt")
+            saved = open(f"{tmp}/part.pt", "rb").read()
+
+            def resume():  # from the checkpoint the first run left, again on each trace
+                open(f"{tmp}/resumed.pt", "wb").write(saved)
+                unet, state = fresh()
+                return parity.train_phantom_resdiff(unet, sched, state, sr, hr, BATCH, total, cut, cut,
+                                                    f"{tmp}/resumed.pt", f"{tmp}/resumed.pt")[0]
+
+            resumed, launches, trace = traced_command(torch, "train_phantom_resdiff --resume-ckpt", resume,
+                                                      lambda _: graphs[-1].graph, TRAIN_LAUNCHES, total - cut)
+    finally:
+        steps_mod.GraphedStep = real
+        torch.backends.cudnn.deterministic = False
+    same = [torch.equal(a, b) for a, b in zip(_state_tensors(resumed), _state_tensors(whole), strict=True)]
+    rec = {"phase": "parity", "check": "resume", "steps": total, "resumed_at": cut, "cudnn": "deterministic",
+           "step": resumed.step, "resumed_equals_uninterrupted": all(same), "tensors_compared": len(same),
+           "tensors_differing": same.count(False), "uninterrupted_s": whole_s, **trace}
+    emit(rec)
+    if not all(same) or resumed.step != total or whole.step != total:
+        raise AssertionError(f"parity: the resumed stage-2 run differs from the uninterrupted one: {rec}")
+    return launches
+
+
+def parity_harness(torch, tmp):
+    """Leg (a): ``parity`` through the command line in this process (``_ParityRecorder``)."""
+    from mrisr_torch import cli
+
+    argv = PARITY_ARGV + _cut_argv({k: v for k, v in PARITY_CUTS.items() if k != "--mnist-steps"}) + [
+        "--mnist-steps", str(PARITY_CUTS["--mnist-steps"][1]), "--out", f"{tmp}/parity.json",
+        "--ckpt", f"{tmp}/parity.ckpt"]
+    t0 = time.perf_counter()
+    with _ParityRecorder(torch) as rec:
+        report = cli.run(argv)["report"]
+    wall = time.perf_counter() - t0
+    profiles = ["exact", "kv_pool_2", "kv_pool_4", "kv_pool_8", "selective_4", "selective_8"]
+    exact = rec.noise.get("exact", [])
+    paired = {name: len(rec.noise.get(name, [])) > 0 and all(
+        torch.equal(a, b) for a, b in zip(rec.noise[name], exact[-len(rec.noise[name]):], strict=True))
+        for name in profiles[1:]}
+    rd = report["phantom_resdiff"]
+    rows = {"mnist_regression": report["mnist_regression"]["model"], "mnist_bicubic":
+            report["mnist_regression"]["bicubic_baseline"], "phantom_cnn": report["phantom_cnn"]["model"],
+            "phantom_bicubic": report["phantom_cnn"]["bicubic_baseline"], "stage1_cnn": rd["stage1_cnn"],
+            "by_sample_steps": rd["by_sample_steps"],
+            "profiles_50step": {n: {"mean": v["mean"], **({k: v[k] for k in ("within_0p1db", "delta_vs_exact")
+                                                          if k in v})}
+                                for n, v in rd["profiles_50step"].items() if n != "sample_steps"}}
+    steps_run = sum(t["steps"] for t in rec.train)
+    out = {"phase": "parity", "leg": "parity", "argv": argv[1:], "cuts": {k: {"record": a, "run": b}
+                                                                          for k, (a, b) in PARITY_CUTS.items()},
+           "wall_s": wall, "leg_s": rec.legs, "train_chunks": rec.train,
+           "train_ms_per_step_with_capture": 1e3 * sum(t["s"] for t in rec.train) / max(steps_run, 1),
+           "chain_s": {f"{n} {k} {w}": v for (n, k, w), v in sorted(rec.chains.items())},
+           "x_T_equal_to_exact": paired, "traced_chains": rec.traces, "rows": rows,
+           "card": torch.cuda.get_device_name(0)}
+    ok = (set(rec.traces) == set(profiles) and all(paired.values()) and set(rd["profiles_50step"]) ==
+          {"sample_steps", *profiles} and all(math.isfinite(v) for row in (rd["model"], rd["stage1_cnn"])
+                                              for v in row.values()))
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError(f"parity: leg (a) {out}")
+    return rec.launches
+
+
+def parity_latent(torch, tmp):
+    """Leg (b): ``parity-latent`` through the command line, every leg on; its wrapper counts (eager warm-ups
+    and capture records) must hold no B1 (every attention dense at 64^2 latents: 4096 keys) and some B3."""
+    from mrisr_torch import cli
+
+    argv = PARITY_LATENT_ARGV + _cut_argv(PARITY_LATENT_CUTS) + ["--out", f"{tmp}/latent.json"]
+    t0 = time.perf_counter()
+    report, counts = counted(torch, lambda: cli.run(argv)["report"])
+    wall = time.perf_counter() - t0
+    rows = {n: {"mean": v["mean"], "beats_bicubic": v["beats_bicubic"]} for n, v in report.items()
+            if isinstance(v, dict) and "beats_bicubic" in v}
+    ok = (counts["flash_attention_fwd"] == 0 and counts["group_norm_silu"] > 0
+          and set(rows) == {"base_unet", "controlnet", "lora", "cn_lora", "adapter"}
+          and all(math.isfinite(r["mean"]["psnr"]) for r in rows.values()))
+    rec = {"phase": "parity", "leg": "parity-latent", "argv": argv[1:],
+           "cuts": {k: {"record": a, "run": b} for k, (a, b) in PARITY_LATENT_CUTS.items()}, "wall_s": wall,
+           "wrapper_counts": counts, "scaling_factor": report["config"]["vae"]["scaling_factor"],
+           "vae_recon_ceiling": report["vae_recon_ceiling"], "bicubic_baseline": report["bicubic_baseline"],
+           "rows": rows, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"parity: leg (b) {rec}")
+
+
+def parity_mnist(torch, tmp):
+    """Leg (c): ``train-mnist`` in both modes, then the ddpm run resumed for ``PARITY_MNIST_RESUME`` steps
+    (traced whole) against an uninterrupted run of as many steps, bitwise (deterministic cuDNN)."""
+    import shutil
+
+    from mrisr_torch import cli
+
+    launches = {}
+    for mode in ("regression", "ddpm"):
+        argv = ["train-mnist", "--mode", mode, "--steps", str(PARITY_MNIST_STEPS), "--out", f"{tmp}/{mode}"]
+        t0 = time.perf_counter()
+        cli.run(argv)
+        emit({"phase": "parity", "leg": "train-mnist", "argv": argv[1:], "wall_s": time.perf_counter() - t0,
+              **_run_record(f"{tmp}/{mode}")})
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = ["train-mnist", "--mode", "ddpm"]
+        cli.run(base + ["--steps", str(PARITY_MNIST_STEPS), "--out", f"{tmp}/part"])
+        shutil.copytree(f"{tmp}/part/ckpt", f"{tmp}/part_ckpt")
+        total = PARITY_MNIST_STEPS + PARITY_MNIST_RESUME
+
+        def resume():
+            shutil.rmtree(f"{tmp}/part/ckpt")
+            shutil.copytree(f"{tmp}/part_ckpt", f"{tmp}/part/ckpt")
+            return cli.run(base + ["--steps", str(total), "--resume", "--out", f"{tmp}/part"])
+
+        res, counts, trace = traced_command(torch, "train-mnist --resume", resume, lambda r: r["step"].graph,
+                                            MNIST_LAUNCHES, PARITY_MNIST_RESUME)
+        add_counts(launches, counts)
+        whole = cli.run(base + ["--steps", str(total), "--out", f"{tmp}/whole"])["state"]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = [torch.equal(a, b) for a, b in zip(_state_tensors(res["state"]), _state_tensors(whole), strict=True)]
+    rec = {"phase": "parity", "leg": "train-mnist --resume", **trace, "resumed_equals_uninterrupted": all(same),
+           "tensors_compared": len(same), "tensors_differing": same.count(False)}
+    emit(rec)
+    if not all(same) or res["state"].step != total:
+        raise AssertionError(f"parity: train-mnist --resume differs from the uninterrupted run: {rec}")
+    return launches
+
+
+def phase_parity(torch):
+    """The fidelity harness and the MNIST trainer on the card: legs (a) ``parity``, the resume check of its
+    stage-2 loop, (b) ``parity-latent``, (c) ``train-mnist``; then B3, B1 and the B2 pair against their plain
+    versions at every (shape, dtype) the legs launched them at (``recording_shapes``).  -> the path's launches:
+    (a)'s traced chains (one a profile), the traced resumed training step, and (c)'s traced resumed trainer."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    totals, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shapes = collections.defaultdict(collections.Counter)
+
+        def leg(name, run):
+            t0 = time.perf_counter()
+            out, seen = recording_shapes(run)
+            seconds[name] = time.perf_counter() - t0
+            for wrapper, keys in seen.items():
+                shapes[wrapper].update(keys)
+            gc.collect()  # the leg's graphs and their memory pools, before the next leg captures its own
+            torch.cuda.empty_cache()
+            return out
+
+        add_counts(totals, leg("parity", lambda: parity_harness(torch, tmp)))
+        add_counts(totals, leg("resume", lambda: parity_resume(torch)))
+        leg("parity-latent", lambda: parity_latent(torch, tmp))
+        add_counts(totals, leg("train-mnist", lambda: parity_mnist(torch, tmp)))
+    worst = {"group_norm_silu": 0.0, "flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    t0 = time.perf_counter()
+    for (shape, groups, eps, dtype) in sorted(shapes["group_norm_silu"], key=str):
+        rec = check_gn(torch, F, dtype, "parity_head", shape, groups, timed=False, eps=eps)
+        worst["group_norm_silu"] = max(worst["group_norm_silu"], rec["err_over_limit"])
+    seconds["gn_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (b, n, m, d, dtype) in sorted(shapes["flash_attention_fwd"], key=str):
+        rec = check_flash(torch, F, dtype, "parity_site", b, n, m, d, timed=False)
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], rec["o_err_over_limit"])
+    for (b, n, m, d, dtype) in sorted(shapes["flash_attention_bwd"], key=str):
+        recs = check_flash_bwd(torch, F, dtype, "parity_site", b, n, m, d, timed=False)
+        worst["flash_attention_bwd"] = max([worst["flash_attention_bwd"]] + [
+            e["err_over_limit"] for r in recs.values() for e in r["errors"].values()])
+    seconds["flash_checks"] = time.perf_counter() - t0
+    checked = {w: sorted([list(k[:-1]) + [str(k[-1]).split(".")[-1]] for k in keys], key=str)
+               for w, keys in shapes.items()}
+    emit({"phase": "parity", "leg": "summary", "seconds": seconds, "shapes_checked": checked,
+          "worst_err_over_limit": worst, "launches": totals})
+    if not shapes["flash_attention_fwd"] or not shapes["flash_attention_bwd"]:
+        raise AssertionError(f"parity: the legs launched no B1 or no B2 pair: {checked}")
+    return totals
+
+
 KERNELS = [  # (name, route, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
     ("flash_attention_bwd_dq", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:228"),
@@ -2556,9 +2912,9 @@ def summary(recs, path_launches):
 
 
 PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "forward", "train",
-          "cli", "grad", "bench")
+          "cli", "parity", "grad", "bench")
 # Paths whose launches the kernels line counts; serving paths launch no backward kernel.
-MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "train", "cli")
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "train", "cli", "parity")
 
 
 def main(argv) -> int:
@@ -2596,9 +2952,12 @@ def main(argv) -> int:
     for name, run in (("kernel", phase_kernels), ("chain", phase_chain), ("checkpoint", phase_checkpoint),
                       ("volume", phase_volume), ("ddpm", phase_ddpm), ("latent", phase_latent),
                       ("latent_train", phase_latent_train), ("prep", phase_prep), ("forward", phase_forward),
-                      ("train", phase_train), ("cli", phase_cli), ("grad", phase_grad), ("bench", phase_bench)):
+                      ("train", phase_train), ("cli", phase_cli), ("parity", phase_parity), ("grad", phase_grad),
+                      ("bench", phase_bench)):
         if name not in phases:
             continue
+        gc.collect()  # an earlier phase's graphs and their memory pools: a capture must not run short
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         out = run(torch)
         emit({"phase": "seconds", "of": name, "s": time.perf_counter() - t0})

@@ -1,5 +1,6 @@
 """Command-line interface of the port (port of ``mrisr_tpu/cli.py``):
 
+    python -m mrisr_torch.cli train-mnist        --mode {regression,ddpm} ...
     python -m mrisr_torch.cli train-cnn          [--config c.yaml] ...
     python -m mrisr_torch.cli train-resdiff      [--config c.yaml] ...
     python -m mrisr_torch.cli train-latent       --mode {controlnet,lora,adapter} ...
@@ -12,6 +13,9 @@
     python -m mrisr_torch.cli build-index        --root DICOM --out index.json
     python -m mrisr_torch.cli stats              --data-dir BIDS [--out stats.json]
     python -m mrisr_torch.cli report             --data-dir BIDS --out DIR
+    python -m mrisr_torch.cli parity             --out PARITY.json ...
+    python -m mrisr_torch.cli parity-latent      --out PARITY_LATENT.json ...
+    python -m mrisr_torch.cli bench              [--cpu-smoke]
 
 Flags, defaults and the ``--config`` precedence (a flag given on the command
 line > the config file > the parser's default) are the reference's.  Every
@@ -22,9 +26,11 @@ training step is one CUDA graph replayed per step (``train/steps.py``) and
 validation runs the graphed ``ResDiffPipeline``.  Checkpoints are the port's
 own (``utils/checkpoint.py``); the JAX CLI's Orbax checkpoints are not read.
 ``convert-weights`` writes the reference's ``.npz`` (a Flax-layout tree), which
-``train-latent --weights-dir`` reads in both packages.  The reference's
-``train-mnist``, ``parity``, ``parity-latent`` and ``bench`` are not ported
-yet and are not registered.
+``train-latent --weights-dir`` reads in both packages.  ``parity`` and
+``parity-latent`` run the fidelity harness (``eval/parity.py``); its
+``--resume-ckpt`` also takes the JAX harness's ``--ckpt`` file.  ``bench``
+runs ``mrisr_torch.bench`` in this process (``--cpu-smoke``: ``--device
+cpu``) and prints its JSON line.
 
 A resumed run takes up the batch sequence where it stopped (the loader runs
 from the global batch number) and each step draws from
@@ -109,6 +115,15 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     def add(name, **kw):
         subparsers[name] = p = sub.add_parser(name, **kw)
         return p
+
+    p = add("train-mnist", help="MNIST 14->28 toy SR")
+    _add_common(p)
+    p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
+    p.add_argument("--mode", choices=["regression", "ddpm"], default="ddpm")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--out", default="./outputs/mnist")
 
     p = add("train-cnn", help="Stage-1 SimpleCNN training")
     _add_common(p)
@@ -197,6 +212,84 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--out", required=True)
     p.add_argument("--axis", type=int, default=2)
     p.add_argument("--max-subjects", type=int, default=None)
+
+    p = add("parity", help="fidelity-parity harness (hermetic configs)")
+    _add_common(p)
+    p.add_argument("--out", default="PARITY_RUN.json")
+    p.add_argument("--mnist-steps", type=int, default=300)
+    p.add_argument("--phantom-steps", type=int, default=400)
+    p.add_argument("--resdiff-steps", type=int, default=300)
+    p.add_argument("--resolution", type=int, default=64)
+    p.add_argument("--index", default=None, help="FastMRI index for the real-data anchor")
+    p.add_argument("--n-train", type=int, default=64, help="phantom training-set size")
+    p.add_argument("--lr-schedule", default="constant", choices=["constant", "cosine"])
+    p.add_argument("--batch", type=int, default=8, help="phantom training batch size")
+    p.add_argument("--plain-phantoms", action="store_true", help="legacy smooth-blob phantoms (no texture/lines)")
+    p.add_argument("--degrade-scale", type=float, default=4.0,
+                   help="degradation scale (blur sigma = 0.5*scale + bicubic down/up)")
+    p.add_argument("--fast", type=int, default=0, help="sample with the fast CA profile (K/V pool factor)")
+    p.add_argument("--skip-mnist", action="store_true", help="skip the MNIST leg (phantom-only runs)")
+    p.add_argument("--texture-mode", default="recoverable", choices=["recoverable", "legacy"],
+                   help="textured-phantom information structure (see eval/parity.py::_phantom_batches)")
+    p.add_argument("--eval-every", type=int, default=0, help="run a 50-step sampling eval every N resdiff steps")
+    p.add_argument("--ckpt", default=None,
+                   help="save EMA+train params and the optimizer state here at every eval (crash insurance)")
+    p.add_argument("--resume-ckpt", default=None,
+                   help="resume resdiff training from a --ckpt file (this package's or the JAX harness's)")
+    p.add_argument("--inner-channel", type=int, default=16, help="resdiff UNet width for the phantom leg")
+    p.add_argument("--ema-decay", type=float, default=0.99,
+                   help="EMA decay for the phantom resdiff leg (use 0.999+ for runs >20k steps)")
+    p.add_argument("--n-test", type=int, default=16,
+                   help="held-out phantom evaluation set size (use a multiple of --batch; >=64 for "
+                        "decision-grade profile-fidelity CIs)")
+    p.add_argument("--sample-seeds", default="2",
+                   help="comma-separated sampler seeds; each profile is sampled n_test x len(seeds) times "
+                        "with paired noise")
+    p.add_argument("--chunk-steps", type=int, default=0,
+                   help="training steps per chunk (0 = follow --eval-every)")
+    p.add_argument("--sample-steps", default="10,50,250,1000",
+                   help="comma-separated sampling-chain lengths for the final sweep")
+
+    p = add("parity-latent", help="latent-path (ControlNet/LoRA) trained-model fidelity leg "
+                                  "(phantom scale; reference src/adapters/res_srdiff.py:36-105)")
+    _add_common(p)
+    p.add_argument("--out", default="PARITY_LATENT.json")
+    p.add_argument("--resolution", type=int, default=64)
+    p.add_argument("--n-train", type=int, default=256)
+    p.add_argument("--n-test", type=int, default=32)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--vae-steps", type=int, default=4000)
+    p.add_argument("--base-steps", type=int, default=6000)
+    p.add_argument("--cn-steps", type=int, default=3000)
+    p.add_argument("--lora-steps", type=int, default=3000)
+    p.add_argument("--inference-steps", type=int, default=20)
+    p.add_argument("--sample-seeds", default="2,3")
+    p.add_argument("--degrade-scale", type=float, default=4.0)
+    p.add_argument("--texture-mode", default="recoverable", choices=["recoverable", "legacy"])
+    p.add_argument("--lora-rank", type=int, default=4)
+    p.add_argument("--chunk-steps", type=int, default=0,
+                   help="training steps per chunk through the *_many wrappers (0 = per-step loop)")
+    p.add_argument("--vae-width", type=int, default=16, help="phantom-scale VAE base width (blocks w,2w,4w)")
+    p.add_argument("--unet-width", type=int, default=32,
+                   help="phantom-scale SDUNet/ControlNet base width (w,2w,2w,2w)")
+    p.add_argument("--prediction-type", default="epsilon", choices=["epsilon", "sample"],
+                   help="'epsilon' (the reference SD1.5 setting) or 'sample' (the model predicts x0: the stable "
+                        "choice for from-scratch phantom-scale training)")
+    p.add_argument("--adapter-steps", type=int, default=0, help="T2I-Adapter leg training steps (0 = skip the leg)")
+    p.add_argument("--cn-lora-steps", type=int, default=0,
+                   help="combined ControlNet+LoRA leg training steps (the reference notebook's configuration; "
+                        "0 = skip)")
+    p.add_argument("--lora-ranks", default="",
+                   help="comma-separated extra LoRA ranks for the rank sweep (each trained --lora-steps)")
+    p.add_argument("--extra-sample-steps", default="",
+                   help="comma-separated extra inference chain lengths (e.g. 50) sampled for the PEFT rows")
+    p.add_argument("--cache-latents", action="store_true",
+                   help="precompute VAE posterior moments once and sample latents in-step")
+    p.add_argument("--vae-chunk-steps", type=int, default=0,
+                   help="separate training chunk for the VAE leg (0 = --chunk-steps)")
+
+    p = add("bench", help="throughput benchmark")
+    p.add_argument("--cpu-smoke", action="store_true", help="the bench's tiny CPU configuration (--device cpu)")
     return ap, subparsers
 
 
@@ -279,6 +372,56 @@ class _Throughput:
             ms = [s.elapsed_time(e) for s, e in self.events]
             rec.update(step_device_ms=sum(ms) / len(ms), step_device_ms_after_first=sum(ms[1:]) / max(len(ms) - 1, 1))
         return rec
+
+
+def _train_mnist(args):
+    """The MNIST toy SR (Adam 1e-3): regression, or conditional DDPM with the class labels over the 1000-step
+    linear noise schedule; metrics every 50 steps, a checkpoint at the end."""
+    import torch
+
+    from mrisr_torch.data.datasets import MNISTSRDataset
+    from mrisr_torch.data.loader import Loader
+    from mrisr_torch.diffusion.schedules import mnist_schedule
+    from mrisr_torch.models.mnist_unet import MNISTUNet
+    from mrisr_torch.ops.resize import interpolate_like_torch
+    from mrisr_torch.train.state import create_train_state, make_optimizer
+    from mrisr_torch.train.steps import make_mnist_ddpm_step, make_mnist_regression_step, step_generator
+    from mrisr_torch.utils.checkpoint import CheckpointManager
+    from mrisr_torch.utils.logging import MetricLogger
+
+    device = _device(args)
+    ds = MNISTSRDataset(args.data_dir)
+    loader = Loader(ds, batch_size=args.batch, shuffle=True, seed=args.seed, pin_memory=device.type == "cuda")
+    torch.manual_seed(args.seed)
+    model = MNISTUNet(num_classes=10, in_channels=1 if args.mode == "regression" else 2, device=device)
+    state = create_train_state(model, make_optimizer(1e-3), device=device)
+    mgr = CheckpointManager(f"{args.out}/ckpt")
+    if args.resume and mgr.latest_step() is not None:
+        mgr.restore(state, in_place=True)
+        print(f"resumed from step {state.step}")
+    step = (make_mnist_regression_step(model, device) if args.mode == "regression"
+            else make_mnist_ddpm_step(model, mnist_schedule(1000), device))
+    logger = MetricLogger(args.out)
+    i = state.step
+    meter = _Throughput(device)
+    batches = loader.batches(start=i)
+    while i < args.steps:
+        batch = meter.next_batch(batches)
+        lr = _to_device(batch["lr"], device)
+        lr_up = interpolate_like_torch(lr.permute(0, 3, 1, 2), (28, 28)).permute(0, 2, 3, 1)
+        b = {"hr": _to_device(batch["hr"], device), "lr_up": lr_up,
+             "label": torch.as_tensor(batch["label"]).to(device, torch.int64)}
+        gen = step_generator(args.seed, i, device)
+        state, m = meter.timed(lambda: step(state, b, gen))
+        if i % 50 == 0:
+            logger.log(i, m)
+        i += 1
+    batches.close()
+    logger.log(i, meter.record(loader), prefix="run_")
+    mgr.save(i, state, force=True)
+    mgr.close()
+    print(f"done; checkpoint at {args.out}/ckpt")
+    return {"state": state, "step": step}
 
 
 def _train_cnn(args):
@@ -695,10 +838,66 @@ def _report(args):
     return {"stats": stats}
 
 
-_COMMANDS = {"train-cnn": _train_cnn, "train-resdiff": _train_resdiff, "train-latent": _train_latent,
-             "build-cache": _build_cache, "sr-volume": _sr_volume, "convert-weights": _convert_weights,
-             "preprocess-slices": _preprocess_slices, "export-png": _export_png, "evaluate": _evaluate,
-             "build-index": _build_index, "stats": _stats, "report": _report}
+def _ints(text: str) -> tuple[int, ...]:
+    return tuple(int(x) for x in text.split(",") if x)
+
+
+def _parity(args):
+    import json
+
+    from mrisr_torch.eval.parity import run_parity
+
+    report = run_parity(
+        args.out, mnist_steps=args.mnist_steps, phantom_steps=args.phantom_steps, resdiff_steps=args.resdiff_steps,
+        res=args.resolution, index_json=args.index, n_train=args.n_train, lr_schedule=args.lr_schedule,
+        batch=args.batch, textured=not args.plain_phantoms, degrade_scale=args.degrade_scale,
+        ca_kv_pool=args.fast, skip_mnist=args.skip_mnist, texture_mode=args.texture_mode,
+        eval_every=args.eval_every, ckpt_path=args.ckpt, resume_ckpt=args.resume_ckpt,
+        inner_channel=args.inner_channel, ema_decay=args.ema_decay, n_test=args.n_test,
+        sample_seeds=_ints(args.sample_seeds), chunk_steps=args.chunk_steps, sample_steps=_ints(args.sample_steps),
+        device=_device(args))
+    for k in ("mnist_regression", "phantom_cnn", "phantom_resdiff", "fastmri_cnn"):
+        if k in report:
+            print(k, json.dumps(report[k]["model"]))
+    return {"report": report}
+
+
+def _parity_latent(args):
+    import json
+    from pathlib import Path
+
+    from mrisr_torch.eval.parity import run_phantom_latent
+
+    report = run_phantom_latent(
+        res=args.resolution, n_train=args.n_train, n_test=args.n_test, batch=args.batch,
+        vae_steps=args.vae_steps, base_steps=args.base_steps, cn_steps=args.cn_steps, lora_steps=args.lora_steps,
+        num_inference_steps=args.inference_steps, sample_seeds=_ints(args.sample_seeds),
+        degrade_scale=args.degrade_scale, texture_mode=args.texture_mode, lora_rank=args.lora_rank,
+        chunk_steps=args.chunk_steps, prediction_type=args.prediction_type, vae_width=args.vae_width,
+        unet_width=args.unet_width, adapter_steps=args.adapter_steps, cn_lora_steps=args.cn_lora_steps,
+        lora_ranks=_ints(args.lora_ranks), extra_sample_steps=_ints(args.extra_sample_steps),
+        cache_latents=args.cache_latents, vae_chunk_steps=args.vae_chunk_steps, device=_device(args))
+    Path(args.out).write_text(json.dumps(report, indent=2))
+    for k in ("bicubic_baseline", "vae_recon_ceiling"):
+        print(k, json.dumps(report[k]))
+    for k, v in report.items():
+        if isinstance(v, dict) and "beats_bicubic" in v:
+            print(k, json.dumps(v["mean"]), "beats_bicubic:", v["beats_bicubic"])
+    return {"report": report}
+
+
+def _bench(args):
+    from mrisr_torch import bench
+
+    return {"rc": bench.main(["--device", "cpu"] if args.cpu_smoke else [])}
+
+
+_COMMANDS = {"train-mnist": _train_mnist, "train-cnn": _train_cnn, "train-resdiff": _train_resdiff,
+             "train-latent": _train_latent, "build-cache": _build_cache, "sr-volume": _sr_volume,
+             "convert-weights": _convert_weights, "preprocess-slices": _preprocess_slices,
+             "export-png": _export_png, "evaluate": _evaluate, "build-index": _build_index, "stats": _stats,
+             "report": _report, "parity": _parity,
+             "parity-latent": _parity_latent, "bench": _bench}
 
 
 def run(argv=None) -> dict:

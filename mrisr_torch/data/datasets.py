@@ -9,10 +9,12 @@
   and the synthetic degradation;
 * :class:`SlicedPairDataset`: per-slice ``.npz {lr, hr}`` directories;
 * :class:`SliceDataset`: BIDS NIfTI pairs with a per-subject cache, slab
-  crop, per-modality windows to [-1, 1] and a 512x512 pad or crop.
+  crop, per-modality windows to [-1, 1] and a 512x512 pad or crop;
+* :class:`MNISTSRDataset`: 14->28 MNIST pairs from IDX files
+  (:func:`_read_idx_images`, :func:`_read_idx_labels`), or the reference's
+  procedural digits (:func:`synthetic_digits`) when there are none.
 
-Batching and shuffling are ``data/loader.py``'s.  The MNIST dataset is not
-ported yet.
+Batching and shuffling are ``data/loader.py``'s.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from mrisr_torch.data.dicom import (
     read_dicom,
 )
 from mrisr_torch.data.slices import clip_to_unit_interval, crop_slab, pad_or_center_crop, to_minus_one_one
-from mrisr_torch.ops.resize import pil_resize_like_np
+from mrisr_torch.ops.resize import pil_resize_like_np, resize2d
 
 # ---------------------------------------------------------------------------
 # FastMRI DICOM path
@@ -276,3 +278,87 @@ class SliceDataset:
         hr = pad_or_center_crop(m["hr"][tuple(sl)], self.TARGET)
         lr = pad_or_center_crop(m["lr"][tuple(sl)], self.TARGET)
         return {"hr": hr[..., None], "lr": lr[..., None], "txt": m["txt"], "subject_id": m["sid"]}
+
+
+# ---------------------------------------------------------------------------
+# MNIST 14->28 toy SR
+# ---------------------------------------------------------------------------
+
+
+def _read_idx_raw(path: Path, magic_want: int, header: int) -> tuple[bytes, tuple[int, ...]]:
+    import gzip
+    import struct
+
+    raw = Path(path).read_bytes()
+    if raw[:2] == b"\x1f\x8b":
+        raw = gzip.decompress(raw)
+    magic, *dims = struct.unpack(f">{header // 4}i", raw[:header])
+    if magic != magic_want:
+        raise ValueError(f"bad IDX magic {magic} in {path}")
+    return raw, tuple(dims)
+
+
+def _read_idx_images(path: Path) -> np.ndarray:
+    """uint8 ``[N, rows, cols]`` from an IDX3 file (gzipped or not)."""
+    raw, (n, rows, cols) = _read_idx_raw(path, 2051, 16)
+    return np.frombuffer(raw, np.uint8, n * rows * cols, 16).reshape(n, rows, cols)
+
+
+def _read_idx_labels(path: Path) -> np.ndarray:
+    """uint8 ``[N]`` from an IDX1 file (gzipped or not)."""
+    raw, (n,) = _read_idx_raw(path, 2049, 8)
+    return np.frombuffer(raw, np.uint8, n, 8)
+
+
+def synthetic_digits(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Deterministic procedural digit-like glyphs, 28x28 uint8, and their int32 labels (the reference's
+    offline stand-in for MNIST: parameterised ellipses and bars)."""
+    rng = np.random.default_rng(seed)
+    imgs = np.zeros((n, 28, 28), np.float32)
+    labels = rng.integers(0, 10, n)
+    yy, xx = np.mgrid[0:28, 0:28].astype(np.float32)
+    for i in range(n):
+        k = int(labels[i])
+        cy, cx = 14 + rng.normal(0, 1.5), 14 + rng.normal(0, 1.5)
+        a, b = 6 + k % 4 + rng.normal(0, 0.5), 8 + k % 3 + rng.normal(0, 0.5)
+        ring = np.abs(((yy - cy) / a) ** 2 + ((xx - cx) / b) ** 2 - 1.0)
+        img = np.exp(-ring * (4 + (k % 5)))
+        if k % 2:
+            img += np.exp(-((xx - cx - (k - 5)) ** 2) / 4) * (yy > cy - 6) * (yy < cy + 8)
+        imgs[i] = np.clip(img, 0, 1)
+    return (imgs * 255).astype(np.uint8), labels.astype(np.int32)
+
+
+class MNISTSRDataset:
+    """14->28 super-resolution pairs in [-1, 1]: ``hr`` ``[28, 28, 1]``, ``lr`` ``[14, 14, 1]`` (bilinear,
+    antialiased, as torchvision's ``Resize(14, antialias=True)``) and ``label``.
+
+    Reads ``{train,t10k}-{images-idx3,labels-idx1}-ubyte[.gz]`` from ``data_dir`` when they are there;
+    otherwise ``n_synthetic`` digits from :func:`synthetic_digits` (seed 0 for train, 1 for test).
+    """
+
+    def __init__(self, data_dir: str | Path | None = None, mode: str = "train", n_synthetic: int = 2048):
+        images = labels = None
+        if data_dir is not None:
+            d = Path(data_dir)
+            stem = "train" if mode == "train" else "t10k"
+            for suffix in ("-ubyte", "-ubyte.gz"):
+                img_p, lbl_p = d / f"{stem}-images-idx3{suffix}", d / f"{stem}-labels-idx1{suffix}"
+                if img_p.exists() and lbl_p.exists():
+                    images, labels = _read_idx_images(img_p), _read_idx_labels(lbl_p)
+                    break
+        if images is None:
+            images, labels = synthetic_digits(n_synthetic, 0 if mode == "train" else 1)
+        self.images, self.labels = images, labels
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx: int) -> dict:
+        hr = self.images[idx].astype(np.float32) / 255.0
+        lr = resize2d(torch.from_numpy(hr), (14, 14), kernel="bilinear", antialias=True).numpy()
+        return {
+            "hr": (hr * 2 - 1)[..., None].astype(np.float32),
+            "lr": (lr * 2 - 1)[..., None].astype(np.float32),
+            "label": np.int32(self.labels[idx]),
+        }

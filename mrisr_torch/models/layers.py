@@ -59,6 +59,22 @@ class NoiseLevelEncoding(nn.Module):
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+class SinusoidalTimeEmbedding(nn.Module):
+    """Integer-timestep embedding, float32: ``t [B] -> [B, dim]``,
+    ``t * exp(-log(10000) * arange(half) / (half - 1))`` -> sin | cos."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        half = self.dim // 2
+        step = torch.arange(half, dtype=torch.float32, device=t.device) / (half - 1)
+        freqs = torch.exp(-math.log(10000.0) * step)
+        args = t.reshape(-1, 1).float() * freqs[None, :]
+        return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
 class NoiseLevelMLP(nn.Module):
     """Encoding -> Dense(4d) -> swish -> Dense(d), computed in float32."""
 
@@ -115,7 +131,11 @@ class ConvBlock(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """SR3 residual block with feature-wise noise-embedding injection."""
+    """SR3 residual block with feature-wise noise-embedding injection.
+
+    ``emb=None`` skips the injection (``Dense_0`` is kept, unused), as the
+    reference does for a model called without a timestep or label.
+    """
 
     def __init__(self, in_channels: int, features: int, groups: int, emb_dim: int, dropout: float = 0.0):
         super().__init__()
@@ -125,9 +145,11 @@ class ResnetBlock(nn.Module):
         if in_channels != features:
             self.Conv_0 = nn.Conv2d(in_channels, features, 1)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.ConvBlock_0(x)
-        h = h + self.Dense_0(emb)[:, :, None, None]
+        if emb is not None:
+            h = h + self.Dense_0(emb)[:, :, None, None]
         h = self.ConvBlock_1(h, generator)
         if hasattr(self, "Conv_0"):
             x = self.Conv_0(x)

@@ -123,6 +123,7 @@ class AutoencoderKL(nn.Module):
         dev = resolve_device(device)
         super().__init__()
         self.scaling_factor = scaling_factor
+        self.downsample_factor = 2 ** (len(block_out_channels) - 1)  # pixels a latent spans, each way
         with dev:
             self.encoder = Encoder(in_channels, block_out_channels, 2, latent_channels)
             self.decoder = Decoder(latent_channels, block_out_channels, 3, in_channels)

@@ -269,10 +269,13 @@ def flash_attention_fwd(
     kd = kernel_head_dim(d)
     o, lse = _launch(*(_pad_head_dim(t, kd) for t in (q, k, v)), scale)
     flash_attention_fwd.launches += 1
+    for seen in flash_attention_fwd.shapes:  # the recordings open (``ops.recording_shapes``)
+        seen[(*q.shape[:2], k.shape[1], d, q.dtype)] += 1
     return (o if kd == d else o[..., :d].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.shapes = []
 
 
 def _check_bwd(q, k, v, o, lse, do) -> None:
@@ -377,6 +380,8 @@ def flash_attention_bwd(
     # than the kernels' is zero-padded after delta is taken and sliced back.
     delta = (do.float() * o.float()).sum(dim=-1)
     d = q.shape[2]
+    for seen in flash_attention_bwd.shapes:
+        seen[(*q.shape[:2], k.shape[1], d, q.dtype)] += 1
     kd = kernel_head_dim(d)
     q, k, v, do = (_pad_head_dim(t, kd) for t in (q, k, v, do))
     parts = tf32_parts(q, k, v, do) if q.dtype == torch.float32 else None
@@ -385,6 +390,9 @@ def flash_attention_bwd(
     if kd == d:
         return dq, dk, dv
     return tuple(t[..., :d].contiguous() for t in (dq, dk, dv))
+
+
+flash_attention_bwd.shapes = []
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -123,6 +123,8 @@ def _launch(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
 def _forward(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
     y = _launch(x, weight, bias, groups, eps)
     group_norm_silu.launches += 1
+    for seen in group_norm_silu.shapes:  # the recordings open (``ops.recording_shapes``)
+        seen[(tuple(x.shape), groups, eps, x.dtype)] += 1
     return y
 
 
@@ -173,6 +175,7 @@ def group_norm_silu(
 
 
 group_norm_silu.launches = 0
+group_norm_silu.shapes = []
 
 
 def build(device: str = "cuda") -> None:

@@ -126,12 +126,16 @@ class LatentSRPipeline:
             raise ValueError(f"LR must be [B, H, W, 1], got {tuple(lr.shape)}")
         if lr.device != self.device:
             raise ValueError(f"LR is on {lr.device}, the pipeline on {self.device}")
-        if lr.shape[1] % 8 or lr.shape[2] % 8:
-            raise ValueError(f"LR height and width must be multiples of 8, got {tuple(lr.shape[1:3])}")
+        f = self.vae.downsample_factor
+        if lr.shape[1] % f or lr.shape[2] % f:
+            raise ValueError(f"LR height and width must be multiples of the VAE's factor {f}, "
+                             f"got {tuple(lr.shape[1:3])}")
 
     def latent_shape(self, lr: torch.Tensor) -> tuple[int, ...]:
+        """The VAE's latents of ``lr`` (8x smaller for SD1.5's VAE, 4x for a three-stage one)."""
         b, h, w, _ = lr.shape
-        return (b, self.unet.conv_in.in_channels, h // 8, w // 8)
+        f = self.vae.downsample_factor
+        return (b, self.unet.conv_in.in_channels, h // f, w // f)
 
     def _chain(self, lr: torch.Tensor, noise: ChainNoise, num_steps: int) -> torch.Tensor:
         """The whole chain on ``[B, H, W, 1]`` LR -> ``[B, H, W, 3]``."""

@@ -4,13 +4,21 @@ The reference builds its optimizer from optax pieces; the port holds to their
 semantics, which differ from the obvious torch ones in places:
 
 * ``grad_accum=k`` keeps the running *mean* of k micro-gradients, emits zero
-  updates on the first k-1 calls and the inner update of the mean on the k-th;
+  updates on the first k-1 calls and the inner update of the mean on the k-th,
+  then multiplies the mean by 0 (a NaN in it stays, and the non-finite skip
+  goes on skipping, as under ``optax.MultiSteps``);
 * ``max_grad_norm`` clips by the global norm *before* Adam;
 * ``skip_nonfinite`` skips parameters and optimizer state on a NaN/inf
   gradient (and gives up after 100 consecutive ones, applying the update);
 * ``TrainState.apply_gradients`` bumps ``step`` and updates the EMA on every
   call, micro-steps included;
-* an LR schedule is read at the number of updates made so far (0 first).
+* an LR schedule is read at the number of updates made so far (0 first);
+* ``kind="adafactor"`` is ``optax.adafactor(lr)`` with its defaults: the
+  factored second-moment estimate (two largest dims, each >= 128, chosen
+  by ``np.argsort`` of the shape), block-RMS clipping at 1, the learning
+  rate, scaling by the parameter's RMS (at least 1e-3), descent.  A zero
+  gradient (a parameter the loss does not reach) still enters the moments
+  with ``eps`` added to its square, as in optax.
 
 An optimizer is ``(init, update, update_)``, one of the two updates given.
 ``update_(grads, state, params, gate=None)`` updates the parameters and the
@@ -71,6 +79,22 @@ def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """``optax.cosine_decay_schedule``: ``init * ((1 - alpha) * 0.5 * (1 + cos(pi * min(n, steps) / steps)) +
+    alpha)``; it stays at ``init * alpha`` from ``decay_steps`` on."""
+    if decay_steps <= 0:
+        raise ValueError("decay_steps must be positive")
+
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            frac = count.clamp(max=decay_steps).to(torch.float32) / decay_steps
+            return init_value * ((1.0 - alpha) * 0.5 * (1.0 + torch.cos(math.pi * frac)) + alpha)
+        frac = min(count, decay_steps) / decay_steps
+        return init_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+
+    return schedule
+
+
 def make_lr_schedule(
     name: str = "constant",
     base_lr: float = 1e-4,
@@ -85,14 +109,7 @@ def make_lr_schedule(
     if name == "cosine":
         warmup = max(warmup_steps, 1)
         decay_steps = max(total_steps, warmup + 1) - warmup
-
-        def cosine(count):
-            if isinstance(count, torch.Tensor):
-                frac = count.clamp(max=decay_steps).to(torch.float32) / decay_steps
-                return base_lr * 0.5 * (1.0 + torch.cos(math.pi * frac))
-            return base_lr * 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
-
-        return _join(_linear(0.0, base_lr, warmup), cosine, warmup)
+        return _join(_linear(0.0, base_lr, warmup), cosine_decay_schedule(base_lr, decay_steps), warmup)
     if name == "linear":
         return _join(
             _linear(0.0, base_lr, max(warmup_steps, 1)),
@@ -167,6 +184,91 @@ def _adam(lr: float | Schedule, b1: float, b2: float, eps: float, weight_decay: 
     return Optimizer(init, update_=update_)
 
 
+def _factored_dims(shape: tuple[int, ...], min_dim_size_to_factor: int) -> tuple[int, int] | None:
+    """optax's choice: the two largest dims (``np.argsort`` of the shape), when the smaller is large
+    enough; a vector is never factored."""
+    import numpy as np
+
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _block_rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(x * x))
+
+
+def _adafactor(lr: float | Schedule, decay_rate: float = 0.8, eps: float = 1e-30, min_dim_size_to_factor: int = 128,
+               clipping_threshold: float = 1.0, min_scale: float = 1e-3) -> Optimizer:
+    """``optax.adafactor(lr)`` with its defaults (see the module docstring); one count for the moments'
+    decay ``1 - (n + 1)^-decay_rate`` and the schedule."""
+    lr_at = lr if callable(lr) else (lambda count: lr)
+
+    def init(params: Params) -> dict:
+        v_row, v_col, v = {}, {}, {}
+        for k, p in params.items():
+            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+            if dims is None:
+                v[k] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                v_row[k] = torch.zeros_like(p.select(d0, 0))
+                v_col[k] = torch.zeros_like(p.select(d1, 0))
+        return {"count": _count(params), "v_row": v_row, "v_col": v_col, "v": v}
+
+    def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
+        count = state["count"]
+        decay = 1.0 - (count.to(torch.float32) + 1.0) ** (-decay_rate)
+        step_lr = lr_at(count)
+        for k, p in params.items():
+            g = grads[k]
+            g2 = g * g + eps
+            if k in state["v"]:
+                v = decay * state["v"][k] + (1.0 - decay) * g2
+                u = g * v ** -0.5
+                _commit_one(state["v"][k], v, gate)
+            else:
+                d1, d0 = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+                v_row = decay * state["v_row"][k] + (1.0 - decay) * g2.mean(dim=d0)
+                v_col = decay * state["v_col"][k] + (1.0 - decay) * g2.mean(dim=d1)
+                row_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+                u = g * ((v_row / row_mean) ** -0.5).unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+                _commit_one(state["v_row"][k], v_row, gate)
+                _commit_one(state["v_col"][k], v_col, gate)
+            u = u / torch.clamp(_block_rms(u) / clipping_threshold, min=1.0)
+            u = u * step_lr
+            rms = _block_rms(p)
+            u = u * torch.where(rms <= min_scale, torch.full_like(rms, min_scale), rms)
+            _commit_one(p, p - u, gate)
+        _commit_one(state["count"], count + 1, gate)
+
+    return Optimizer(init, update_=update_)
+
+
+def multi_transform(transforms: dict[str, Optimizer], label_of: Callable[[str], str]) -> Optimizer:
+    """``optax.multi_transform``: each parameter goes to ``transforms[label_of(name)]``; the state holds each
+    transform's state under its label."""
+    def split(tree: Params, label: str) -> Params:
+        return {k: v for k, v in tree.items() if label_of(k) == label}
+
+    def init(params: Params) -> dict:
+        unknown = {label_of(k) for k in params} - set(transforms)
+        if unknown:
+            raise KeyError(f"no transform for labels {sorted(unknown)}")
+        return {label: tx.init(sub) for label, tx in transforms.items() if (sub := split(params, label))}
+
+    def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
+        for label, tx in transforms.items():
+            sub = split(params, label)
+            if sub:
+                tx.update_({k: grads[k] for k in sub}, state[label], sub, gate)
+
+    return Optimizer(init, update_=update_)
+
+
 def _clip_by_global_norm(max_norm: float, inner: Optimizer) -> Optimizer:
     def update_(grads: Params, state: dict, params: Params, gate: torch.Tensor | None = None) -> None:
         keys = list(grads)
@@ -208,7 +310,8 @@ def _multi_steps(inner: Optimizer, every_k: int) -> Optimizer:
         new_acc = torch._foreach_add(acc, delta)
         emit = n == every_k - 1
         inner.update_(dict(zip(keys, new_acc)), state["inner"], params, _and(gate, emit))
-        _commit(acc, [torch.where(emit, torch.zeros_like(a), a) for a in new_acc], gate)
+        # optax resets the accumulator as (1 - emit) * acc, which keeps a NaN in it after the emit.
+        _commit(acc, torch._foreach_mul(new_acc, (~emit).to(new_acc[0].dtype)), gate)
         _commit_one(state["mini_step"], torch.where(emit, torch.zeros_like(n), n + 1), gate)
         _commit_one(state["gradient_step"], state["gradient_step"] + emit.to(torch.int64), gate)
 
@@ -231,9 +334,7 @@ def make_optimizer(
     elif kind == "adamw":
         tx = _adam(lr, b1, b2, eps, weight_decay)
     elif kind == "adafactor":
-        # The reference's stand-in for 8-bit Adam on the TPU; torch has no
-        # optimizer that equals optax.adafactor.
-        raise NotImplementedError("adafactor is not ported; use 'adam' or 'adamw'")
+        tx = _adafactor(lr)
     else:
         raise ValueError(f"unknown optimizer {kind!r}")
     if max_grad_norm is not None:

@@ -2,8 +2,8 @@
 
 One factory per pipeline; each returns ``step(state, batch, generator,
 draws=None) -> (state, {"loss": ...})``.  Batches are dicts of ``[B, H, W, 1]``
-images, as in the reference; the models run NCHW.  The latent family's
-factories are in ``train/latent.py``; the MNIST ones are not ported yet.
+images, as in the reference (an MNIST batch also holds ``label``, ``[B]``);
+the models run NCHW.  The latent family's factories are in ``train/latent.py``.
 
 On a CUDA device the step is one captured ``torch.cuda.CUDAGraph``
 (``cuda_graph=True``, the default): the random draws, the forward, the
@@ -27,7 +27,12 @@ Random draws.  The reference splits one PRNG key four ways; here one
 (``randn`` of the image shape) and then the dropout masks in the order the
 UNet applies them.  ``draws`` may hold ``"gamma"`` (``[B]``) or ``"eps"``
 (NCHW); an entry given there is used as it is and not drawn (nor is ``t``
-when ``gamma`` is given).
+when ``gamma`` is given).  The MNIST DDPM step draws ``t`` (``randint(0,
+T)``, ``[B]``) and then ``eps``; ``draws`` may hold either.
+
+A parameter the loss does not reach (the MNIST UNet's time and class
+embeddings in regression mode) gets a zero gradient, as under ``jax.grad``,
+so the optimizer steps it as optax does.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from mrisr_torch.device import resolve_device
-from mrisr_torch.diffusion import sr3
+from mrisr_torch.diffusion import ddpm, sr3
 from mrisr_torch.diffusion.schedules import Schedule
 from mrisr_torch.train.losses import image_compare_loss, l2
 from mrisr_torch.train.precision import Policy
@@ -65,7 +70,8 @@ def _value_and_grad(loss_fn: Callable[[Params], torch.Tensor], params: Params):
     """Loss and its gradients with respect to the (float32) ``params``, by name."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     loss = loss_fn(leaves)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves.values(), grads)]
     return loss.detach(), dict(zip(leaves, grads))
 
 
@@ -117,7 +123,7 @@ class GraphedStep:
                     gen.set_state(generator.get_state())
                     start = gen.get_state()
                     if self.remat:
-                        self.regen_offset = self.probe(start, gen)
+                        self.regen_offset = self.probe(start, gen, self.inputs)
                         gen.set_state(start)
                 self.body(warm, self.inputs, gen, None)
             del warm
@@ -138,7 +144,7 @@ class GraphedStep:
             raise ValueError("a graphed step draws its own t, gamma and eps; use cuda_graph=False to pass draws")
         if self.random and (generator is None or generator.device.type != "cuda"):
             raise ValueError("a graphed step needs a CUDA torch.Generator")
-        inputs = {k: _nchw(batch[k]) for k in self.keys}
+        inputs = {k: _nchw(batch[k]) if batch[k].ndim == 4 else batch[k] for k in self.keys}
         if self.graph is None:
             self._capture(state, {k: v.to(self.device) for k, v in inputs.items()}, generator)
         elif state is not self.state:
@@ -263,17 +269,78 @@ def make_resdiff_train_step(
             state.update_tensors_(grads)
             return loss
 
-        def probe(start, generator):
+        def probe(start, generator, inputs):
             """The Philox offset the step's draws of t, gamma and eps take (the UNet's draws start there)."""
             with torch.no_grad():
-                draw(graphed_step.inputs["sr"], graphed_step.inputs["hr"], generator, {})
+                draw(inputs["sr"], inputs["hr"], generator, {})
             return int(generator.get_state().view(torch.int64)[1] - start.view(torch.int64)[1])
 
-        graphed_step = GraphedStep(body, dev, ("sr", "hr"), random=True, remat=remat, probe=probe)
-        return graphed_step
+        return GraphedStep(body, dev, ("sr", "hr"), random=True, remat=remat, probe=probe)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
         loss, grads = loss_and_grads(state.params, _nchw(batch["sr"]), _nchw(batch["hr"]), generator, draws or {})
+        return state.apply_gradients(grads), {"loss": loss}
+
+    return step
+
+
+def make_mnist_regression_step(model: nn.Module, device: str | torch.device = "cuda", cuda_graph: bool = True):
+    """MNIST regression: MSE of ``model(lr_up)`` (no timestep, no label) against HR.  Puts ``model`` in
+    training mode."""
+    dev = _prepare(model, device)
+
+    def loss_and_grads(params, lr_up, hr):
+        return _value_and_grad(lambda p: l2(functional_call(model, p, (lr_up,)), hr), params)
+
+    if _graphed(dev, cuda_graph):
+        def body(state, inputs, generator, regen):
+            loss, grads = loss_and_grads(state.params, inputs["lr_up"], inputs["hr"])
+            state.update_tensors_(grads)
+            return loss
+
+        return GraphedStep(body, dev, ("hr", "lr_up"), random=False)
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
+        loss, grads = loss_and_grads(state.params, _nchw(batch["lr_up"]), _nchw(batch["hr"]))
+        return state.apply_gradients(grads), {"loss": loss}
+
+    return step
+
+
+def make_mnist_ddpm_step(model: nn.Module, sched: Schedule, device: str | torch.device = "cuda",
+                         cuda_graph: bool = True):
+    """Conditional DDPM: ``model(concat(x_t, lr_up), t, label) -> eps``, MSE against ``eps``.  A graphed
+    step copies ``label`` in when the model has classes; the eager one uses it when the batch holds it."""
+    dev = _prepare(model, device)
+    sched = sched.to(dev)
+
+    def loss_and_grads(params, hr, lr_up, label, generator, draws):
+        b = hr.shape[0]
+        t = draws["t"].to(hr.device) if "t" in draws else torch.randint(
+            0, sched.num_timesteps, (b,), generator=generator, device=hr.device)
+        eps = draws["eps"].to(hr.device) if "eps" in draws else torch.randn(
+            hr.shape, generator=generator, device=hr.device, dtype=hr.dtype)
+        x_t = ddpm.q_sample(sched, hr, t, eps)
+        inp = torch.cat([x_t, lr_up], dim=1)
+        return _value_and_grad(lambda p: l2(functional_call(model, p, (inp, t, label)), eps), params)
+
+    if _graphed(dev, cuda_graph):
+        keys = ("hr", "lr_up") + (("label",) if getattr(model, "num_classes", 0) > 0 else ())
+
+        def body(state, inputs, generator, regen):
+            loss, grads = loss_and_grads(state.params, inputs["hr"], inputs["lr_up"], inputs.get("label"),
+                                         generator, {})
+            state.update_tensors_(grads)
+            return loss
+
+        return GraphedStep(body, dev, keys, random=True)
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
+        label = batch.get("label")
+        hr = _nchw(batch["hr"])
+        loss, grads = loss_and_grads(state.params, hr, _nchw(batch["lr_up"]),
+                                     None if label is None else torch.as_tensor(label).to(hr.device), generator,
+                                     draws or {})
         return state.apply_gradients(grads), {"loss": loss}
 
     return step

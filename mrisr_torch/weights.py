@@ -15,6 +15,9 @@ Every leaf is used once; a leaf with no parameter, or a parameter with no
 leaf, raises.  The tree holds numpy arrays; ``load_flax_checkpoint`` reads
 one from a Flax ``.msgpack`` checkpoint with the port's own reader
 (``utils/flax_msgpack.py``), so this package never imports flax.
+``load_flax_train_checkpoint`` carries a whole training run across: the
+parity harness's ``--ckpt`` file (``params``, ``ema``, ``opt_state``,
+``step``), Adam's moments and count included, into a ``TrainState``.
 """
 from __future__ import annotations
 
@@ -45,27 +48,38 @@ def _target(mod: nn.Module, key: str, arr: np.ndarray, path: str) -> tuple[str, 
     raise KeyError(f"Flax leaf {path} has no counterpart in {type(mod).__name__}")
 
 
-def _walk(mod: nn.Module, tree: Mapping, prefix: str, used: set[str]) -> None:
+def _walk(mod: nn.Module, tree: Mapping, prefix: str, out: dict[str, np.ndarray]) -> None:
     for key, sub in tree.items():
         path = f"{prefix}{key}"
         if isinstance(sub, Mapping):
             child = mod._modules.get(key)
             if child is None:
                 raise KeyError(f"Flax subtree {path} has no module in {type(mod).__name__}")
-            _walk(child, sub, path + ".", used)
+            _walk(child, sub, path + ".", out)
             continue
         pname, value = _target(mod, key, np.asarray(sub, dtype=np.float32), path)
         param = mod._parameters.get(pname)
         name = prefix + pname
         if param is None:
             raise KeyError(f"Flax leaf {path}: {type(mod).__name__} has no {pname}")
-        if name in used:
+        if name in out:
             raise KeyError(f"parameter {name} filled twice")
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {value.shape} does not fit {name} {tuple(param.shape)}")
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(value)))
-        used.add(name)
+        out[name] = value
+
+
+def flax_named(module: nn.Module, tree: Mapping) -> dict[str, np.ndarray]:
+    """``{parameter name: value in the port's layout}`` for a Flax tree shaped like ``module``'s parameters
+    (``{"params": {...}}`` or the inner dict); ``module`` is not changed."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, np.ndarray] = {}
+    _walk(module, tree, "", out)
+    missing = sorted(name for name, _ in module.named_parameters() if name not in out)
+    if missing:
+        raise KeyError(f"parameters with no Flax leaf: {missing}")
+    return out
 
 
 def load_flax_params(module: nn.Module, tree: Mapping) -> None:
@@ -74,13 +88,10 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
     ``tree`` is either ``{"params": {...}}`` (what ``Module.init`` returns) or
     the inner dict.
     """
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    used: set[str] = set()
-    _walk(module, tree, "", used)
-    missing = sorted(name for name, _ in module.named_parameters() if name not in used)
-    if missing:
-        raise KeyError(f"parameters with no Flax leaf: {missing}")
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for name, value in flax_named(module, tree).items():
+            params[name].copy_(torch.from_numpy(np.array(value)))
 
 
 def load_flax_checkpoint(module: nn.Module, path: str | Path) -> dict:
@@ -89,6 +100,44 @@ def load_flax_checkpoint(module: nn.Module, path: str | Path) -> dict:
     tree = read_msgpack(path)
     load_flax_params(module, tree["ema"])
     return tree
+
+
+def _adam_moments(tree):
+    """The first dict in ``tree`` (depth first) that holds Adam's ``mu`` and ``nu``; None if there is none."""
+    if not isinstance(tree, Mapping):
+        return None
+    if "mu" in tree and "nu" in tree:
+        return tree
+    for sub in tree.values():
+        found = _adam_moments(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def load_flax_train_checkpoint(state, module: nn.Module, path: str | Path):
+    """Copy a JAX training checkpoint (``{"params", "ema", "opt_state", "step"}``, as the parity harness's
+    ``--ckpt`` writes it) into ``state`` (a ``TrainState`` over ``module``'s parameter names), in place, and
+    return it: parameters, the EMA (when both have one), the step, and Adam's ``mu``, ``nu`` and ``count``
+    when the file's optimizer state holds them (an older file without them leaves the optimizer state as it
+    was)."""
+    tree = read_msgpack(path)
+
+    def copy(dst: dict, src: Mapping) -> None:
+        with torch.no_grad():
+            for name, value in flax_named(module, src).items():
+                dst[name].copy_(torch.from_numpy(np.array(value)))
+
+    copy(state.params, tree["params"])
+    if state.ema_params is not None and "ema" in tree:
+        copy(state.ema_params, tree["ema"])
+    src, dst = _adam_moments(tree.get("opt_state")), _adam_moments(state.opt_state)
+    if src is not None and dst is not None:
+        copy(dst["mu"], src["mu"])
+        copy(dst["nu"], src["nu"])
+        dst["count"].copy_(torch.as_tensor(np.asarray(src["count"]).astype(np.int64)))
+    state.step = int(tree["step"])
+    return state
 
 
 def flat_to_params(flat: Mapping, sep: str = "/") -> dict:

@@ -113,10 +113,14 @@ def test_train_cnn_build_cache_and_train_resdiff_from_the_cache(tmp_path):
 def test_cli_help_lists_the_ported_commands():
     out = subprocess.run([sys.executable, "-m", "mrisr_torch.cli", "--help"], cwd=REPO, capture_output=True,
                          text=True, check=True).stdout
-    for cmd in ("train-cnn", "train-resdiff", "train-latent", "build-cache", "sr-volume", "convert-weights",
-                "preprocess-slices", "export-png", "evaluate", "build-index", "stats", "report"):
+    for cmd in ("train-mnist", "train-cnn", "train-resdiff", "train-latent", "build-cache", "sr-volume",
+                "convert-weights", "preprocess-slices", "export-png", "evaluate", "build-index", "stats", "report",
+                "parity", "parity-latent", "bench"):  # all 16 of the reference's
         assert cmd in out
-    assert "train-mnist" not in out
+    assert set(t_cli.build_parser()[1]) == {
+        "train-mnist", "train-cnn", "train-resdiff", "train-latent", "build-cache", "sr-volume", "convert-weights",
+        "preprocess-slices", "export-png", "evaluate", "build-index", "stats", "report", "parity", "parity-latent",
+        "bench"}
 
 
 # ---------------------------------------------------------------------------

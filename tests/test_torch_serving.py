@@ -373,6 +373,33 @@ def test_launch_counts_reset_and_read_every_kernel(tiny_pipeline):
     assert set(launch_counts().values()) == {0}
 
 
+def test_recording_shapes_nests_and_notes_only_kernel_launches(tiny_pipeline, monkeypatch):
+    from mrisr_torch import ops
+    from mrisr_torch.ops import flash_attention, groupnorm
+
+    wrappers = (flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd, groupnorm.group_norm_silu)
+    lr = torch.zeros((1, 32, 32, 1))
+    x, w, b = torch.randn(2, 8, 4, 4), torch.ones(8), torch.zeros(8)
+    # The launch stands in for the kernel, so that the wrapper's bookkeeping after it runs on the CPU.
+    monkeypatch.setattr(groupnorm, "_launch", lambda x, w, b, g, eps: groupnorm.group_norm_silu_plain(x, w, b, g, eps))
+    monkeypatch.setattr(groupnorm.group_norm_silu, "launches", 0)
+    with ops.recording_shapes() as outer:
+        groupnorm._forward(x, w, b, 4, 1e-5)
+        with ops.recording_shapes() as inner:
+            assert all(len(fn.shapes) == 2 for fn in wrappers)
+            groupnorm._forward(x, w, b, 2, 1e-6)
+            # A CPU chain runs the plain versions: no wrapper launches a kernel, so none notes one.
+            tiny_pipeline.super_resolve(lr, torch.Generator().manual_seed(0), num_steps=1)
+        assert all(len(fn.shapes) == 1 for fn in wrappers)
+    assert all(fn.shapes == [] for fn in wrappers)
+    assert set(outer) == set(inner) == {"flash_attention_fwd", "flash_attention_bwd", "group_norm_silu"}
+    assert outer["group_norm_silu"] == {((2, 8, 4, 4), 4, 1e-5, torch.float32): 1,
+                                        ((2, 8, 4, 4), 2, 1e-6, torch.float32): 1}
+    assert inner["group_norm_silu"] == {((2, 8, 4, 4), 2, 1e-6, torch.float32): 1}
+    assert not outer["flash_attention_fwd"] and not outer["flash_attention_bwd"]
+    assert groupnorm.group_norm_silu.launches == 2
+
+
 def test_port_bench_prints_one_json_line_on_the_cpu():
     proc = subprocess.run([sys.executable, "-m", "mrisr_torch.bench", "--device", "cpu"], cwd=REPO,
                           capture_output=True, text=True, timeout=300, check=True)

@@ -215,6 +215,7 @@ OPT_CASES = {
     "grad_accum_with_ema": dict(grad_accum=2),
     "skip_nonfinite": dict(skip_nonfinite=True, max_grad_norm=1.0),
     "cosine_schedule": dict(kind="adamw", weight_decay=0.01, grad_accum=2),
+    "skip_nonfinite_with_accum": dict(skip_nonfinite=True, grad_accum=2),
 }
 
 
@@ -224,7 +225,9 @@ def test_optimizer_and_ema_match_optax(case):
 
     ``grad_accum=2`` moves the parameters on calls 2 and 4 only, while step and
     EMA move on every call; ``skip_nonfinite`` sees a NaN gradient on call 3
-    and leaves parameters and Adam moments as they were.
+    and leaves parameters and Adam moments as they were; with ``grad_accum=2``
+    too, optax's accumulator keeps the NaN (it resets as ``0 * acc``), so every
+    later emit is skipped.
     """
     kw = OPT_CASES[case]
     if case == "cosine_schedule":
@@ -242,7 +245,7 @@ def test_optimizer_and_ema_match_optax(case):
     ts.opt_state = tx.init(ts.params)
     for call in range(5):
         g = {k: _x(*s, seed=60 + 10 * call + i) for i, (k, s) in enumerate(shapes.items())}
-        if case == "skip_nonfinite" and call == 2:
+        if case.startswith("skip_nonfinite") and call == 2:
             g["b"][1] = np.nan
         before = {k: v.clone() for k, v in ts.params.items()}
         js = js.apply_gradients(grads={k: jnp.asarray(v) for k, v in g.items()})
@@ -258,6 +261,8 @@ def test_optimizer_and_ema_match_optax(case):
             assert unchanged == (call != 3)
         elif case == "skip_nonfinite":
             assert unchanged == (call == 2)
+        elif case == "skip_nonfinite_with_accum":  # the NaN stays in optax's accumulator: call 3 on is skipped
+            assert unchanged == (call != 1)
         else:
             assert not unchanged
 
@@ -287,7 +292,7 @@ def test_in_place_optimizer_is_the_functional_one_and_keeps_its_tensors(case):
     ptrs = [t.data_ptr() for t in _flat(in_place)]
     for call in range(5):
         g = {"a": torch.from_numpy(_x(3, 4, seed=60 + 10 * call)), "b": torch.from_numpy(_x(5, seed=61 + 10 * call))}
-        if case == "skip_nonfinite" and call == 2:
+        if case.startswith("skip_nonfinite") and call == 2:
             g["b"][1] = float("nan")
         in_place.apply_gradients_(g)
         assert in_place.step == call + 1
@@ -341,8 +346,9 @@ def test_restore_in_place_copies_into_the_states_tensors(tmp_path, dropout_run):
 
 
 def test_unported_optimizer_and_unknown_names_raise():
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        t_state.make_optimizer(kind="adafactor")
+    """Every optimizer the reference names is ported (adafactor is held to optax in ``test_torch_mnist``);
+    unknown names raise."""
+    assert t_state.make_optimizer(kind="adafactor").update_ is not None
     with pytest.raises(ValueError):
         t_state.make_optimizer(kind="sgd")
     with pytest.raises(ValueError):
