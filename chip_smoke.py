@@ -52,26 +52,27 @@ result.  Each phase prints JSON lines:
    fixed seeds, 77x768 context, bf16 weights, 20 Res-SRDiff steps; as in the
    reference the carry is fp32 from the shifted start, so the UNet, ControlNet
    and decoder compute in fp32) through ``LatentSRPipeline.super_resolve``:
-   ControlNet mode at 512^2 (bs 8), graphed and eager (graph = eager bitwise,
+   ControlNet mode (the towers fused, the default) at 512^2 (bs 8), graphed and eager (graph = eager bitwise,
    also from one generator), and at 1024^2 (bs 2), graphed; wall ms (a
    graphed chain's from its traced replay, the eager chain's from its counted
    call), slices/s, peak memory; one traced chain of each mode, the
    replay's launches from the graph's kernel nodes, held to the counts the
-   modules give: B3 1350 at both sizes, B1 0 at 512^2 and 140 at 1024^2; one
+   modules give: B3 950 at both sizes, B1 0 at 512^2 and 100 at 1024^2; one
    graphed adapter-mode chain at 512^2 (B3 950); one fp32 ControlNet+UNet
    evaluation at 576^2, bs 1, against the CPU's plain path (rms error within
    1e-4 of rms(ref)); B3 at every head shape of the 512^2 chain (collected
-   from the modules while the eager chain runs) and B1 at the SD route (64 x
-   16384^2, D=40 padded to 64), both dtypes, against their plain versions,
-   timed beside their bounds and one library call (the kernel phase adds B2a
-   and B2b there, fp32, 8 x 16384^2);
+   from the modules while the eager chain runs) and B1 at the SD route as the
+   fused 1024^2 chain launches it (32 x 16384^2, D=40 padded to 64), both
+   dtypes, against their plain versions, timed beside their bounds and one
+   library call (the kernel phase adds B2a and B2b there, fp32, 16 x 16384^2:
+   the fused training step's);
 9. ``latent_train``: the latent family's training steps
    (``mrisr_torch/train/latent.py``) at SD1.5's widths, fp32 weights and
    states: ControlNet+LoRA at 256^2, bs 2, from pixels, graphed against eager
    over 3 steps (bitwise under deterministic cuDNN), and ControlNet mode at
    1024^2, bs 1, from cached latents, graphed; ms a step, peak memory, ten
    traced replays each, their launches from the graph's kernel nodes held to
-   what the modules give (B3 107 and 65 a step; B1 7, B2a 5, B2b 5 at 1024^2);
+   what the modules give (the towers fused: B3 87 and 45 a step; B1 5, B2a 5, B2b 5 at 1024^2);
    B3 in fp32 against its plain version at every head shape the two steps
    gave it; one ControlNet step's gradients at 576^2 against the CPU's plain
    path; and ``train-latent`` in this process at 256^2, bs 2, traced whole:
@@ -102,19 +103,23 @@ result.  Each phase prints JSON lines:
 14. ``bench``: ``python3 -m mrisr_torch.bench`` (fast and exact profiles, 3
    timed calls each, and ``--pipeline latent``) in a subprocess, its JSON line echoed;
 15. ``prep`` (run after ``latent_train``): the workflow around the model with
-   no JAX.  (a) SD1.5-width SDUNet and AutoencoderKL (fp32, fixed seeds)
-   exported to diffusers-named ``.safetensors`` and through ``convert-weights``
-   to the reference's ``.npz`` (seconds to read, convert and write);
-   ``train-latent --weights-dir`` (ControlNet, 256^2, bs 2, 2 steps) traced
-   whole, the towers it read from the ``.npz`` bitwise equal to the originals; a bf16
-   ``LatentSRPipeline`` on them serving a 256x256x8 NIfTI at bs 4, serially
+   no JAX.  (a) An SDUNet at SD1.5's widths cut to three levels and one
+   ResnetBlock2D a down block (``PREP_UNET_CUT``: its one-core ``.npz`` write
+   set the phase's length at full depth) and the AutoencoderKL (fp32, fixed seeds) exported to
+   diffusers-named ``.safetensors`` and through ``convert-weights`` to the
+   reference's ``.npz`` (seconds to read, convert and write);
+   ``train-latent --weights-dir`` (ControlNet of the cut UNet's shape, fused,
+   256^2, bs 2, 2 steps) traced whole, the UNet (built at the tree's depth)
+   and the VAE it read from the ``.npz`` files each bitwise equal to its
+   original; a bf16 ``LatentSRPipeline`` on them (the cut UNet) serving a 256x256x8 NIfTI at bs 4, serially
    and two batches a call (equal volumes, seconds per volume, one traced
    volume of each).  (b) A BIDS tree of two subjects (64 mT 146x182x36, 3 T
    176x240x256): ``stats``, ``report``, ``preprocess-slices`` and
    ``evaluate`` on the card, ``export-png``; ``build-index`` over two
    DICOM patients x 16 slices; seconds and output counts of each.  (c) One
    pair on the 3 T grid, the LR under a known motion and a bias field,
-   through ``SliceDataset(do_n4=True)`` with the rigid registration on the
+   through ``SliceDataset(do_n4=True)`` (N4 cut to ``PREP_N4_ITERATIONS``
+   iterations) with the rigid registration on the
    card: N4 and registration seconds, the 6 parameters against the motion
    (``PREP_MOTION_TOL``) and against the CPU's (``PREP_CPU_TOL``); on a
    thread beside (a) and (b), its registration after them.
@@ -132,14 +137,33 @@ result.  Each phase prints JSON lines:
    keys).  (c) ``train-mnist`` in both modes and the ddpm run resumed (traced whole: B3 15 a step), bitwise
    against an uninterrupted run.  B3, B1 and the B2 pair against their plain versions at every (shape,
    dtype) the legs launched them at, recorded by the wrappers (``ops.recording_shapes``).
+17. ``tail`` (run after ``parity``): the port's last modules.  (a) The fused ControlNet+UNet encoder towers
+   (``models/fused.py``, the default form of every ControlNet chain and step above) against the towers one
+   after the other: one fp32 eps-prediction at 512^2, bs 2 (``TAIL_EPS_TOL``, B3 45 against 65); the graphed
+   512^2 bs-8 and 1024^2 bs-2 chains of phase ``latent`` unfused (ms and launches of a traced replay: B3
+   1350, B1 0 / 140) against its fused ones (B3 950, B1 0 / 100), outputs within ``TAIL_CHAIN_TOL``; the
+   1024^2 ControlNet training step from cached latents in both forms (graphed, traced replays: ms, B1 5 / 7,
+   B2a and B2b 5, B3 45 / 65 a step; one eager step of each, gradients within ``TAIL_GRAD_TOL``).  (b) ``int8_conv`` on the card
+   bitwise equal to its plain version on the CPU at every int8 conv shape of the bs-8 256^2 UNet (each timed
+   beside the exact bf16 conv); the bs-8 bf16 fast chain with ``conv_int8`` graphed (traced replays: B1 100,
+   B3 1450 a chain; ms beside the same chain with exact convs); the int8 profile on the trained checkpoint against
+   exact, one eager fp32 chain each, PSNR per image (information).  (c) The five mesh legs of ``parallel/dryrun.py`` in this process at
+   world size 1 over NCCL, each held to its no-mesh result (the graphed data-parallel step with its
+   all-reduce captured).  (d) SDXL's text towers at full width (ViT-L 768 x 12, bigG 1280 x 32; fp32) on
+   two prompts, card against CPU (``SDXL_TOL``).  Then B1, the B2 pair and B3 against their plain versions
+   at every (shape, dtype) the legs launched them at, and B3 timed at the fused towers' heads (2 x 32
+   groups).
 
 Each phase's seconds follow it (``"phase": "seconds"``).  Each main path (chain, checkpoint, volume, ddpm,
-latent, latent_train, prep, train, cli, parity) is driven with
+latent, latent_train, prep, train, cli, parity, tail) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  A
 replayed CUDA graph calls no wrapper: a graphed path (chain, checkpoint,
 volume, latent, latent_train, prep, train, cli, parity) is traced, its wrappers' counts must stay 0, and its
 launches are the captured graph's kernel nodes times the graph launches in the
-trace, held equal to what the path must launch (``replayed``).
+trace, held equal to what the path must launch (``replayed``).  Phase ``tail``
+counts its wrappers' launches (eager runs and captures) and adds each graph's
+kernel nodes, read through libcuda's graph calls and held to what the modules give,
+times its replays, without a trace.
 Then the kernels summary line, the nvidia-smi line, and last the result line.
 ``--phases a,b`` runs only the named phases (device and build always run);
 ``--log FILE`` also writes every JSON line to FILE.
@@ -147,6 +171,7 @@ Then the kernels summary line, the nvidia-smi line, and last the result line.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import gc
 import json
@@ -676,11 +701,27 @@ def check_captured(torch):
             raise AssertionError(f"a kernel replayed from a CUDA graph disagrees with its plain version ({name})")
 
 
+def resdiff_head_calls(torch):
+    """{(shape, groups): B3 launches in one 50-step bs-8 256^2 serving chain}, recorded from one UNet forward."""
+    from mrisr_torch.models.resdiff_unet import ResDiffUNet
+
+    torch.manual_seed(0)
+    unet = ResDiffUNet(image_size=SIZE, device="cuda").to(torch.bfloat16)
+    x = torch.zeros((BATCH, 2, SIZE, SIZE), device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        _, heads = recording_heads(lambda: unet(x, torch.full((BATCH,), 0.5, device="cuda")))
+    calls = collections.Counter()
+    for (shape, groups, _, _), n in heads.items():
+        calls[tuple(shape), groups] += n * STEPS
+    return calls
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
     recs = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
             "group_norm_silu": []}
+    head_calls = resdiff_head_calls(torch)
     for dtype in (torch.bfloat16, torch.float32):
         for cases, timed in ((FLASH_CASES, True), (FLASH_RAGGED, False), (FLASH_EXTREME, False),
                              (FLASH_PAD, False)):
@@ -688,8 +729,18 @@ def phase_kernels(torch):
                 recs["flash_attention_fwd"].append(check_flash(torch, F, dtype, *case, timed=timed))
                 for name, rec in check_flash_bwd(torch, F, dtype, *case, timed=timed).items():
                     recs[name].append(rec)
+        chain = dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
         for i, case in enumerate(GN_CASES):
-            recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=True, backward=i < 2))
+            rec = check_gn(torch, F, dtype, *case, timed=True, backward=i < 2)
+            recs["group_norm_silu"].append(rec)
+            for k in chain:
+                chain[k] += head_calls[tuple(case[1]), case[2]] * rec[k]
+        # Each of the 13 heads' time times its launches in a 50-step chain, summed: B3's share of a chain.
+        calls = sum(head_calls[tuple(c[1]), c[2]] for c in GN_CASES)
+        emit({"phase": "kernel_gn_totals", "dtype": str(dtype).split(".")[-1], "heads": len(GN_CASES),
+              "calls_a_chain": calls, **{f"{k}_a_chain": v for k, v in chain.items()}})
+        if calls != chain_expect(STEPS)["group_norm_silu"] or len(head_calls) != len(GN_CASES):
+            raise AssertionError(f"the chain's B3 heads {dict(head_calls)} are not GN_CASES' 13 ({calls} launches)")
         for case in GN_RAGGED:
             recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=False))
     # The backward on the SD route (the latent training step at 1024^2), fp32 as the step runs it.
@@ -899,9 +950,9 @@ def chain_expect(steps, n_chains=1):
             "flash_attention_bwd_dkv": 0, "group_norm_silu": 29 * steps * n_chains}
 
 
-def serving_pipeline(torch, kv_pool, dtype=None, cuda_graph=True):
+def serving_pipeline(torch, kv_pool, dtype=None, cuda_graph=True, conv_int8=False):
     """The serving configuration (``bench.py``'s): SimpleCNN, ResDiffUNet at 256^2, random weights from fixed
-    seeds, cast to ``dtype`` (bf16 by default)."""
+    seeds, cast to ``dtype`` (bf16 by default); ``conv_int8``: the int8 profile."""
     from mrisr_torch.diffusion.schedules import resdiff_schedule
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.models.simple_cnn import SimpleCNN
@@ -910,7 +961,7 @@ def serving_pipeline(torch, kv_pool, dtype=None, cuda_graph=True):
     dtype = dtype or torch.bfloat16
     torch.manual_seed(0)  # the same random weights in every profile
     cnn = SimpleCNN(device="cuda").to(dtype)
-    unet = ResDiffUNet(image_size=SIZE, ca_kv_pool=kv_pool, device="cuda").to(dtype)
+    unet = ResDiffUNet(image_size=SIZE, ca_kv_pool=kv_pool, conv_int8=conv_int8, device="cuda").to(dtype)
     return ResDiffPipeline(cnn, unet, resdiff_schedule(1000), device="cuda", cuda_graph=cuda_graph)
 
 
@@ -1002,16 +1053,16 @@ def psnr_ssim(torch, final, hr):
     return [float(v) for v in p], [float(v) for v in s]
 
 
-def checkpoint_pipeline(torch, tree, kv_pool, dtype):
+def checkpoint_pipeline(torch, tree, kv_pool, dtype, conv_int8=False):
     """The trained checkpoint's EMA UNet behind an identity stage 1 (SimpleCNN with zero weights: its
-    residual path), so the chain's condition is the stored one."""
+    residual path), so the chain's condition is the stored one; ``conv_int8``: the int8 profile."""
     from mrisr_torch.diffusion.schedules import resdiff_schedule
     from mrisr_torch.models.resdiff_unet import ResDiffUNet
     from mrisr_torch.models.simple_cnn import SimpleCNN
     from mrisr_torch.pipelines.resdiff import ResDiffPipeline
     from mrisr_torch.weights import load_flax_params
 
-    unet = ResDiffUNet(**CKPT_UNET, ca_kv_pool=kv_pool, device="cuda")
+    unet = ResDiffUNet(**CKPT_UNET, ca_kv_pool=kv_pool, conv_int8=conv_int8, device="cuda")
     load_flax_params(unet, tree["ema"])
     cnn = SimpleCNN(device="cuda")
     with torch.no_grad():
@@ -1604,18 +1655,25 @@ LATENT_STEPS = 20
 LATENT_CHAINS = (("512", 8, 512), ("1024", 2, 1024))
 # The run's time limit: no separate timed call of a latent chain.  A graphed chain's time is its traced replay's
 # wall (``profiled_chain_ms``), an eager chain's that of the eager call whose launches are counted.
-# What the module structure gives for a 20-step chain: B3 65 a ControlNet+UNet step (UNet 22 ResnetBlock2D
-# x 2 + conv_norm_out, ControlNet 10 x 2) and 50 in the VAE (encoder 10 x 2 + 1, decoder 14 x 2 + 1); 45 a
-# step in adapter mode; B1 7 a step at 128^2 latents (UNet 2 + 3, ControlNet 2), none at 64^2.
-LATENT_STATED = {("controlnet", 512): (1350, 0), ("controlnet", 1024): (1350, 140), ("adapter", 512): (950, 0)}
+# What the module structure gives for a 20-step chain: B3 65 a ControlNet+UNet step with the towers one after
+# the other (UNet 22 ResnetBlock2D x 2 + conv_norm_out, ControlNet 10 x 2), 45 with the towers fused (the
+# default: the ControlNet's 20 encoder heads launch with the UNet's, at 2C channels and 2G groups) and in
+# adapter mode, and 50 in the VAE (encoder 10 x 2 + 1, decoder 14 x 2 + 1); B1 at 128^2 latents 7 a step
+# unfused (UNet 2 + 3, ControlNet 2), 5 fused (the two down-tower sites take both lanes), none at 64^2.
+# (mode, size, fused) -> (B3, B1) a chain.
+LATENT_STATED = {("controlnet", 512, True): (950, 0), ("controlnet", 1024, True): (950, 100),
+                 ("controlnet", 512, False): (1350, 0), ("controlnet", 1024, False): (1350, 140),
+                 ("adapter", 512, False): (950, 0)}
 # One fp32 ControlNet+UNet evaluation, bs 1, card (TF32 off) against the CPU's plain path, at the smallest size
 # above 512^2 (72^2 latents: 5184 keys, B1 at the level-0 sites, as at 1024^2).  At 1024^2 the CPU leg took
 # 79.7 and 99.5 s on two H100 hosts, and the run would not keep inside its 1200 s on the slower; 10.7 s here.
 LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 576, 1e-4
-# B1 at the SD route: 8 images x 8 heads at 128^2 latents, D = 40 (the wrapper pads it to 64).
-FLASH_SD = ("sd_route", 64, 16384, 16384, 40)
-# B2a/B2b at the SD route, as a 1024^2 latent training step runs them: one image's 8 heads, fp32.
-FLASH_SD_BWD = ("sd_route", 8, 16384, 16384, 40)
+# B1 at the SD route as the fused 1024^2 chain at bs 2 launches it: 2 lanes x 2 images x 8 heads at 128^2
+# latents, D = 40 (the wrapper pads it to 64).  (Before the fused towers: 64 = 8 images x 8 heads.)
+FLASH_SD = ("sd_fused", 32, 16384, 16384, 40)
+# B2a/B2b at the SD route, as the fused 1024^2 training step at bs 1 runs them: 2 lanes x 8 heads, fp32.
+# (Before the fused towers: one image's 8 heads.)
+FLASH_SD_BWD = ("sd_fused", 16, 16384, 16384, 40)
 
 
 def latent_modules(torch, dtype, seed=10):
@@ -1668,9 +1726,11 @@ def flash_sites(m, size):
 def latent_expect(pipe, size, steps):
     """The launches of one chain, counted from the modules: two B3 heads a ResnetBlock2D and one a
     ``conv_norm_out`` (UNet and ControlNet every step, VAE once); one B1 a Transformer2D whose self-attention
-    sees more than 4096 keys (``flash_sites``)."""
-    towers = [pipe.unet] + ([] if pipe.controlnet is None else [pipe.controlnet])
-    per_step = gn_heads(pipe.unet) + 1 + (0 if pipe.controlnet is None else gn_heads(pipe.controlnet))
+    sees more than 4096 keys (``flash_sites``).  With fused towers the ControlNet's launch with the UNet's
+    encoder: nothing of its own."""
+    own_cn = pipe.controlnet is not None and not pipe.fused_towers
+    towers = [pipe.unet] + ([pipe.controlnet] if own_cn else [])
+    per_step = gn_heads(pipe.unet) + 1 + (gn_heads(pipe.controlnet) if own_cn else 0)
     vae = gn_heads(pipe.vae.encoder) + 1 + gn_heads(pipe.vae.decoder) + 1
     return {"flash_attention_fwd": steps * sum(len(flash_sites(m, size)) for m in towers),
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "group_norm_silu": steps * per_step + vae}
@@ -1692,25 +1752,42 @@ def recording_heads(run):
     return out, seen["group_norm_silu"]
 
 
+# The graphed ControlNet chains of phase ``latent`` (the default, fused form): (size, fused) -> their output
+# and ms, which phase ``tail`` holds its unfused chains to.
+LATENT_RUNS = {}
+
+
+def latent_inputs(torch, pipe, batch, size):
+    """A chain's fixed-seed LR ``[B, S, S, 1]`` (bf16) and draws."""
+    from mrisr_torch.pipelines.latent import ChainNoise
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lr = (torch.rand((batch, size, size, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    return lr, ChainNoise.draw(pipe.latent_shape(lr), LATENT_STEPS, gen, "cuda")
+
+
+def latent_pipeline(torch, unet, side, vae, prompt, size, adapter=False, fused=None, cuda_graph=True):
+    """A LatentSRPipeline on the card and its expected launches a chain, held to ``LATENT_STATED``."""
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.pipelines.latent import LatentSRPipeline
+
+    kw = dict(adapter=side) if adapter else {}
+    pipe = LatentSRPipeline(unet, None if adapter else side, vae, sd15_schedule(), prompt, fused_towers=fused,
+                            device="cuda", cuda_graph=cuda_graph, **kw)
+    expect = latent_expect(pipe, size, LATENT_STEPS)
+    stated = LATENT_STATED.get((pipe.mode, size, pipe.fused_towers))
+    if stated and (expect["group_norm_silu"], expect["flash_attention_fwd"]) != stated:
+        raise AssertionError(f"latent {pipe.mode} {size}: the modules give {expect}, stated {stated}")
+    return pipe, expect
+
+
 def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=False, eager_too=True):
     """One latent chain configuration, graphed (and eagerly): launch counts, graph = eager bitwise from one
     generator, wall and CUDA-event ms, peak memory, one traced chain of each mode.  -> (launches of the traced
     replay, B3 head shapes of the eager chain)."""
-    from mrisr_torch.diffusion.schedules import sd15_schedule
-    from mrisr_torch.pipelines.latent import ChainNoise, LatentSRPipeline
-
-    sched = sd15_schedule()
-    kw = dict(adapter=side) if adapter else {}
-    cn = None if adapter else side
-    pipe = LatentSRPipeline(unet, cn, vae, sched, prompt, device="cuda", **kw)
+    pipe, expect = latent_pipeline(torch, unet, side, vae, prompt, size, adapter)
     mode = pipe.mode
-    expect = latent_expect(pipe, size, LATENT_STEPS)
-    stated = LATENT_STATED.get((mode, size))
-    if stated and (expect["group_norm_silu"], expect["flash_attention_fwd"]) != stated:
-        raise AssertionError(f"latent {mode} {size}: the modules give {expect}, stated {stated}")
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    lr = (torch.rand((batch, size, size, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
-    noise = ChainNoise.draw(pipe.latent_shape(lr), LATENT_STEPS, gen, "cuda")
+    lr, noise = latent_inputs(torch, pipe, batch, size)
     run = lambda: pipe.super_resolve(lr, num_steps=LATENT_STEPS, noise=noise)  # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1725,8 +1802,11 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
         raise AssertionError(f"{what}: bad output {tuple(out.shape)}")
     again, counts, graph_prof = replayed(torch, run, pipe, 1, f"{what} graph replay", None, expect)
     graph_ms, graph_event_ms = [graph_prof["profiled_chain_ms"]], None
+    if mode == "controlnet":
+        LATENT_RUNS[size, pipe.fused_towers] = {"out": again, "chain_ms": graph_ms[0], "launches": counts}
     rec = {"phase": "latent", "mode": mode, "case": case, "batch": batch, "size": size, "latent": size // 8,
-           "steps": LATENT_STEPS, "dtype": "bfloat16", "expected_launches": expect, "launches": counts,
+           "steps": LATENT_STEPS, "dtype": "bfloat16", "fused_towers": pipe.fused_towers,
+           "expected_launches": expect, "launches": counts,
            "launches_from": "the graph's kernel nodes times the graph launches in a trace of one replay",
            "first_call_launches": first_counts, "first_call_ms": first_ms, "graph_chain_ms": graph_ms,
            "graph_event_ms": graph_event_ms, "chain_ms": min(graph_ms),
@@ -1736,7 +1816,7 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
     heads = None
     bad = rec["repeat_max_abs_diff"] != 0.0
     if eager_too:
-        eager = LatentSRPipeline(unet, cn, vae, sched, prompt, device="cuda", cuda_graph=False, **kw)
+        eager = latent_pipeline(torch, unet, side, vae, prompt, size, adapter, cuda_graph=False)[0]
         erun = lambda: eager.super_resolve(lr, num_steps=LATENT_STEPS, noise=noise)  # noqa: E731
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1749,9 +1829,12 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
         torch.cuda.synchronize()
         eager_ms, eager_event_ms = [(time.perf_counter() - t0) * 1e3], [start.elapsed_time(end)]
         eager_peak = torch.cuda.max_memory_allocated() / 2**30
-        from_gen = [p.super_resolve(lr, torch.Generator(device="cuda").manual_seed(5), LATENT_STEPS)
-                    for p in (pipe, eager)]
-        _, eager_prof = traced(torch, erun, min(eager_ms), lambda _: eager_counts)
+        gen5 = lambda: torch.Generator(device="cuda").manual_seed(5)  # noqa: E731
+        # The traced eager chain is the one that draws from a generator (its launches are the counted one's).
+        from_gen = [pipe.super_resolve(lr, gen5(), LATENT_STEPS)]
+        eager_gen_out, eager_prof = traced(torch, lambda: eager.super_resolve(lr, gen5(), LATENT_STEPS), min(eager_ms),
+                                           lambda _: eager_counts)
+        from_gen.append(eager_gen_out)
         rec.update(eager_launches=eager_counts, eager_trace_launches=eager_prof["kernel_events"],
                    eager_chain_ms=eager_ms, eager_event_ms=eager_event_ms, eager_peak_gib=eager_peak,
                    eager_slices_per_s=batch / (min(eager_ms) / 1e3),
@@ -1773,12 +1856,23 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
     return counts, heads
 
 
-def check_latent_fp32(torch):
-    """One fp32 ControlNet+UNet evaluation at ``LATENT_FP32_SIZE``^2 (bs 1; B1 at its D=40 sites), the card's
-    kernels (TF32 off) against the CPU's plain path: max abs error over max |ref|, rms error over rms(ref)."""
+def on_host_thread(torch, fn, no_grad=True):
+    """``fn()`` on a thread beside the card's work (a CPU reference: host work): a future of (its result, its
+    seconds).  Its modules and inputs are made before it starts, so it draws nothing from the global
+    generators."""
+    def run():
+        with torch.set_grad_enabled(not no_grad):
+            t0 = time.perf_counter()
+            return fn(), time.perf_counter() - t0
+
+    return concurrent.futures.ThreadPoolExecutor(1).submit(run)
+
+
+def start_latent_fp32(torch):
+    """The fp32 ControlNet+UNet evaluation of ``check_latent_fp32``: the card's modules and inputs, and the CPU's
+    plain evaluation started on a thread (``on_host_thread``)."""
     from mrisr_torch.models.controlnet import ControlNet
     from mrisr_torch.models.sd_unet import SDUNet
-    from mrisr_torch.ops import launch_counts, reset_launch_counts
 
     unet, cn, _ = latent_modules(torch, torch.float32, seed=30)
     cpu_unet, cpu_cn = SDUNet(device="cpu"), ControlNet(device="cpu")
@@ -1796,13 +1890,22 @@ def check_latent_fp32(torch):
         down, mid = c(xs, ts, ctxs, cond_image=conds)
         return u(xs, ts, ctxs, down_block_additional_residuals=down, mid_block_additional_residual=mid)
 
+    return {"unet": unet, "cn": cn, "evaluate": evaluate,
+            "cpu": on_host_thread(torch, lambda: evaluate(cpu_unet, cpu_cn, "cpu"))}
+
+
+def check_latent_fp32(torch, started):
+    """One fp32 ControlNet+UNet evaluation at ``LATENT_FP32_SIZE``^2 (bs 1; B1 at its D=40 sites), the card's
+    kernels (TF32 off) against the CPU's plain path (``start_latent_fp32``): max abs error over max |ref|, rms
+    error over rms(ref)."""
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+
     with torch.no_grad():
         reset_launch_counts()
-        got = evaluate(unet, cn, "cuda").cpu()
+        got = started["evaluate"](started["unet"], started["cn"], "cuda").cpu()
         counts = launch_counts()
-        t0 = time.perf_counter()
-        ref = evaluate(cpu_unet, cpu_cn, "cpu")
-        cpu_s = time.perf_counter() - t0
+    ref, cpu_s = started["cpu"].result()
+    lat = LATENT_FP32_SIZE // 8
     err = (got - ref).abs()
     rms_rel = float(err.square().mean().sqrt() / ref.square().mean().sqrt())
     expect = {"flash_attention_fwd": 7, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
@@ -1811,7 +1914,8 @@ def check_latent_fp32(torch):
     rec = {"phase": "latent_fp32", "size": LATENT_FP32_SIZE, "latent": lat, "dtype": "float32", "tf32": False,
            "launches": counts, "max_abs_err": float(err.max()), "ref_abs_max": float(ref.abs().max()),
            "max_abs_err_over_max_ref": float(err.max() / ref.abs().max()), "rms_err_over_rms_ref": rms_rel,
-           "bar_rms_rel": LATENT_FP32_RMS_REL, "cpu_eval_s": cpu_s, "ok": ok}
+           "bar_rms_rel": LATENT_FP32_RMS_REL, "cpu_eval_s": cpu_s, "cpu_eval": "on a thread beside the chains",
+           "ok": ok}
     emit(rec)
     if not ok:
         raise AssertionError(f"latent fp32 evaluation on the card disagrees with the CPU (launches {expect}): {rec}")
@@ -1824,6 +1928,7 @@ def phase_latent(torch):
     import torch.nn.functional as F
 
     totals = {}
+    fp32 = start_latent_fp32(torch)  # its CPU leg runs beside the chains
     prompt = torch.randn((1, 77, 768), generator=torch.Generator().manual_seed(20)).to(torch.bfloat16)
     unet, cn, vae = latent_modules(torch, torch.bfloat16)
     heads = None
@@ -1844,7 +1949,8 @@ def phase_latent(torch):
     add_counts(totals, counts)
     del unet, vae, adapter
     torch.cuda.empty_cache()
-    check_latent_fp32(torch)
+    check_latent_fp32(torch, fp32)
+    del fp32
     torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         chain = dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
@@ -1867,10 +1973,14 @@ LT_STEPS, LT_LR, LT_LORA_RANK, LT_CFG = 3, 1e-5, 4, 0.1
 # latents.  What the modules give a step: B3 107 at 256^2 (UNet 22 ResnetBlock2D x 2 + conv_norm_out,
 # ControlNet 10 x 2, two VAE encodes of 10 x 2 + 1), 65 from cached latents; B1 7 at 1024^2 (UNet 2 + 3,
 # ControlNet 2); B2a/B2b 5 in ControlNet mode (ControlNet 2, UNet up block 3: its down blocks need no
-# backward), 7 with LoRA.
+# backward), 7 with LoRA.  With the towers fused (the default) the ControlNet's 20 heads and 2 sites launch with
+# the UNet's encoder: B3 87 and 45, B1 5, and B2a/B2b 5 in both modes (the two down-tower sites at twice the
+# batch, the UNet's up blocks 3).
 LT_CASES = (("cn_lora", 256, 2, False), ("controlnet", 1024, 1, True))
-LT_STATED = {("cn_lora", 256, False): (107, 0, 0), ("controlnet", 1024, True): (65, 7, 5),
-             ("controlnet", 256, False): (107, 0, 0), ("controlnet", 576, True): (65, 7, 5)}
+# (mode, size, cached, fused) -> (B3, B1, B2a) a step
+LT_STATED = {("cn_lora", 256, False, True): (87, 0, 0), ("controlnet", 1024, True, True): (45, 5, 5),
+             ("controlnet", 256, False, True): (87, 0, 0), ("controlnet", 576, True, True): (45, 5, 5),
+             ("controlnet", 1024, True, False): (65, 7, 5)}
 # One ControlNet step's gradients, card (kernels, TF32 off) against the CPU's plain path, at the smallest size
 # above 512^2 (72^2 latents: 5184 keys, B1/B2 at level 0; 1024^2 takes minutes on the host); per parameter
 # ||g_gpu - g_cpu|| <= GRAD_TOL ||g_cpu||, the loss within 1e-4.
@@ -1884,18 +1994,26 @@ LT_CLI_RUNS = (("controlnet", 30), ("lora", 2), ("adapter", 2))
 LT_TRACED_REPLAYS = 10
 
 
-def latent_train_expect(unet, cn, vae, mode, size, cached):
+def latent_train_expect(unet, cn, vae, mode, size, cached, fused=True, stated=None):
     """The launches of one latent training step, counted from the modules (``gn_heads``, ``flash_sites``):
     B3 in the forward of the UNet (and its ``conv_norm_out``), the ControlNet and, from pixels, two VAE
     encodes (its backward is the plain composition); B1 at each flash site; B2a/B2b at each one the
-    gradient reaches: the ControlNet's and the UNet's up blocks' in ControlNet mode, every one with LoRA."""
+    gradient reaches: the ControlNet's and the UNet's up blocks' in ControlNet mode, every one with LoRA.
+    ``fused`` (a ControlNet mode's towers fused, the default): the ControlNet's heads and sites launch with
+    the UNet's encoder, and the backward reaches every merged down-tower site and the UNet's up blocks'.
+    ``stated``: (B3, B1, B2) to hold the count to, in place of ``LT_STATED``'s (towers of another depth)."""
     unet_sites = flash_sites(unet, size)
-    cn_sites = [] if cn is None else flash_sites(cn, size)
-    bwd = len(cn_sites) + (len(unet_sites) if "lora" in mode else sum(n.startswith("up_blocks_") for n in unet_sites))
-    b3 = gn_heads(unet) + 1 + (0 if cn is None else gn_heads(cn)) + (0 if cached else 2 * (gn_heads(vae.encoder) + 1))
+    cn_sites = [] if cn is None or fused else flash_sites(cn, size)
+    up_sites = sum(n.startswith("up_blocks_") for n in unet_sites)
+    if cn is not None and fused:
+        bwd = len(unet_sites)
+    else:
+        bwd = len(cn_sites) + (len(unet_sites) if "lora" in mode else up_sites)
+    b3 = (gn_heads(unet) + 1 + (0 if cn is None or fused else gn_heads(cn))
+          + (0 if cached else 2 * (gn_heads(vae.encoder) + 1)))
     expect = {"flash_attention_fwd": len(unet_sites) + len(cn_sites), "flash_attention_bwd_dq": bwd,
               "flash_attention_bwd_dkv": bwd, "group_norm_silu": b3}
-    stated = LT_STATED.get((mode, size, cached))
+    stated = stated or LT_STATED.get((mode, size, cached, cn is not None and fused))
     got = (b3, expect["flash_attention_fwd"], bwd)
     if stated and got != stated:
         raise AssertionError(f"latent_train {mode} {size}: the modules give {expect}, stated {stated}")
@@ -1918,8 +2036,9 @@ def latent_train_batch(torch, batch, size, seed, vae=None, device="cuda"):
     return out
 
 
-def latent_train_step(torch, unet, cn, vae, mode, cached, prompt, empty, device="cuda", cuda_graph=True):
-    """(a train state, the step) of ``mode`` (``"cn_lora"`` or ``"controlnet"``), AdamW with clipping at 1.0."""
+def latent_train_step(torch, unet, cn, vae, mode, cached, prompt, empty, device="cuda", cuda_graph=True, fused=None):
+    """(a train state, the step) of ``mode`` (``"cn_lora"`` or ``"controlnet"``), AdamW with clipping at 1.0;
+    ``fused``: the towers' form (None: the default, fused)."""
     from mrisr_torch.diffusion.schedules import sd15_schedule
     from mrisr_torch.models.lora import init_lora_params
     from mrisr_torch.train import latent
@@ -1927,7 +2046,7 @@ def latent_train_step(torch, unet, cn, vae, mode, cached, prompt, empty, device=
 
     tx = make_optimizer(LT_LR, kind="adamw", max_grad_norm=1.0)
     kw = dict(empty_embeds=empty, proportion_empty_prompts=LT_CFG, latents_cached=cached, device=device,
-              cuda_graph=cuda_graph)
+              cuda_graph=cuda_graph, fused=fused)
     sched = sd15_schedule()
     if mode == "cn_lora":
         lora = init_lora_params(unet, LT_LORA_RANK, generator=torch.Generator(device=device).manual_seed(41))
@@ -2002,14 +2121,13 @@ def latent_train_case(torch, unet, cn, vae, prompt, empty, mode, size, batch, ca
     return counts, heads
 
 
-def check_latent_train_grad(torch, unet, cn, prompt):
-    """One ControlNet step from cached latents at ``LT_GRAD_SIZE``^2, bs 1, eager with fixed draws: the
-    card's kernels (TF32 off) against the CPU's plain path, gradient by gradient."""
+def start_latent_train_grad(torch, unet, cn, prompt):
+    """The inputs of ``check_latent_train_grad`` (a cached-latent batch and fixed draws at ``LT_GRAD_SIZE``^2,
+    bs 1) and its CPU leg, started on a thread beside the card's work (``on_host_thread``)."""
     from mrisr_torch.diffusion.schedules import sd15_schedule
     from mrisr_torch.models.controlnet import ControlNet
     from mrisr_torch.models.sd_unet import SDUNet
     from mrisr_torch.models.vae import AutoencoderKL
-    from mrisr_torch.ops import launch_counts, reset_launch_counts
     from mrisr_torch.train import latent
     from mrisr_torch.train.state import Optimizer, create_train_state
 
@@ -2026,31 +2144,43 @@ def check_latent_train_grad(torch, unet, cn, prompt):
     draws = {"hr_noise": torch.randn((1, 4, lat, lat), generator=gen),
              "lr_noise": torch.randn((1, 4, lat, lat), generator=gen), "t": torch.tensor([400]),
              "eps": torch.randn((1, 4, lat, lat), generator=gen)}
-    expect = latent_train_expect(unet, cn, None, "controlnet", size, True)
 
-    def gradients(u, c, device):
+    def gradients(u, c, vae, device):
         seen = {}
 
         def record(grads, opt_state, params):  # an optimizer that keeps the gradients and moves nothing
             seen.update(grads)
             return {k: torch.zeros_like(g) for k, g in grads.items()}, opt_state
 
-        vae = AutoencoderKL(device=device)  # the cached path reads only its scaling factor
         state = create_train_state(c, Optimizer(lambda p: {}, record), device=device)
         step = latent.make_controlnet_train_step(u, c, vae, sched, prompt.to(device), latents_cached=True,
                                                  device=device, cuda_graph=False)
         on = lambda tree: {k: v.to(device) for k, v in tree.items()}  # noqa: E731
-        t0 = time.perf_counter()
         _, metrics = step(state, on(batch), None, on(draws))
-        loss = float(metrics["loss"])
-        return {k: g.cpu() for k, g in seen.items()}, loss, time.perf_counter() - t0
+        return {k: g.cpu() for k, g in seen.items()}, float(metrics["loss"])
 
+    cpu_vae = AutoencoderKL(device="cpu")  # the cached path reads only its scaling factor
+    return {"gradients": gradients, "cpu": on_host_thread(
+        torch, lambda: gradients(cpu_unet, cpu_cn, cpu_vae, "cpu"), no_grad=False)}
+
+
+def check_latent_train_grad(torch, unet, cn, started):
+    """One ControlNet step from cached latents at ``LT_GRAD_SIZE``^2, bs 1, eager with fixed draws: the
+    card's kernels (TF32 off) against the CPU's plain path (``start_latent_train_grad``), gradient by
+    gradient."""
+    from mrisr_torch.models.vae import AutoencoderKL
+    from mrisr_torch.ops import launch_counts, reset_launch_counts
+
+    size, lat = LT_GRAD_SIZE, LT_GRAD_SIZE // 8
+    expect = latent_train_expect(unet, cn, None, "controlnet", size, True)
     torch.cuda.synchronize()
     reset_launch_counts()
-    g_gpu, loss_gpu, gpu_s = gradients(unet, cn, "cuda")
+    t0 = time.perf_counter()
+    g_gpu, loss_gpu = started["gradients"](unet, cn, AutoencoderKL(device="cuda"), "cuda")
     torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
     counts = launch_counts()
-    g_cpu, loss_cpu, cpu_s = gradients(cpu_unet, cpu_cn, "cpu")
+    (g_cpu, loss_cpu), cpu_s = started["cpu"].result()
     rel = {k: float((g_gpu[k] - g).norm() / g.norm().clamp_min(1e-30)) for k, g in g_cpu.items()}
     worst = max(rel, key=rel.get)
     ok = rel[worst] <= GRAD_TOL and counts == expect and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
@@ -2058,7 +2188,7 @@ def check_latent_train_grad(torch, unet, cn, prompt):
            "cached_latents": True, "dtype": "float32", "tf32": False, "launches": counts, "expected": expect,
            "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "leaves": len(rel), "worst_leaf": worst,
            "worst_rel_l2": rel[worst], "median_rel_l2": sorted(rel.values())[len(rel) // 2], "tolerance": GRAD_TOL,
-           "gpu_step_s": gpu_s, "cpu_step_s": cpu_s, "ok": ok}
+           "gpu_step_s": gpu_s, "cpu_step_s": cpu_s, "cpu_step": "on a thread beside the training cases", "ok": ok}
     emit(rec)
     if not ok:
         raise AssertionError(f"latent training gradients on the card disagree with the CPU plain path: {rec}")
@@ -2082,6 +2212,7 @@ def phase_latent_train(torch):
     gen = torch.Generator().manual_seed(45)
     prompt = (0.02 * torch.randn((1, 77, 768), generator=gen)).cuda()
     empty = torch.zeros((1, 77, 768), device="cuda")
+    grad_check = start_latent_train_grad(torch, unet, cn, prompt)  # its CPU leg runs beside the cases
     totals, heads = {}, {}
     for mode, size, batch, cached in LT_CASES:
         counts, seen = latent_train_case(torch, unet, cn, vae, prompt, empty, mode, size, batch, cached)
@@ -2093,7 +2224,8 @@ def phase_latent_train(torch):
         rec = check_gn(torch, F, dtype, "latent_train_head", shape, groups, timed=False, eps=eps)
         emit({"phase": "latent_train_head", "shape": list(shape), "groups": groups, "eps": eps, "dtype": rec["dtype"],
               "calls_in_first_graphed_call": calls})
-    check_latent_train_grad(torch, unet, cn, prompt)
+    check_latent_train_grad(torch, unet, cn, grad_check)
+    del grad_check
     torch.backends.cudnn.deterministic = False
     expect = {mode: latent_train_expect(unet, cn if mode == "controlnet" else None, vae, mode, 256, False)
               for mode, _ in LT_CLI_RUNS}
@@ -2122,6 +2254,17 @@ def phase_latent_train(torch):
 # ``.safetensors`` and through ``convert-weights`` to the reference's ``.npz``; ``train-latent --weights-dir``
 # from them; a LatentSRPipeline on them serving a NIfTI serially and grouped.
 PREP_SEEDS = {"unet": 60, "vae": 61, "controlnet": 62, "prompt": 63}
+# The UNet converted in (a): SD1.5's widths at a smaller depth (three levels of the four, the last 1280 one
+# dropped; one ResnetBlock2D and Transformer2D a down block, two an up block, the full model's two and
+# three).  Its ``.npz`` write, zlib on one core, took 169.0-215.4 s at full depth on the H100 host (NVIDIA
+# H100 80GB HBM3, 700.00 W) and set the phase's length; 142.9-166.0 s at one block a level.
+PREP_UNET_CUT = dict(block_out_channels=(320, 640, 1280), layers_per_block=1)
+# ``train-latent --weights-dir`` builds its UNet at the depth of the ``unet.npz`` it reads and a ControlNet to
+# match (fused): a step's launches, counted from those modules (B3, B1, B2), stated here.
+PREP_TRAIN_STATED = (65, 0, 0)
+# N4 in (c) stops after this many iterations (the reference's cap is 25; the pair converges in 18-20, which
+# took 195.6-261.9 s a volume on that host and then set the phase's length).
+PREP_N4_ITERATIONS = 10
 PREP_CONTEXT = (77, 768)
 PREP_TRAIN = ["--mode", "controlnet", "--resolution", "256", "--batch", "2", "--steps", "2"]
 PREP_VOLUME, PREP_VOLUME_BATCH, PREP_VOLUME_GROUP = (256, 256, 8), 4, 2
@@ -2187,9 +2330,10 @@ def prep_weights(torch, tmp, converted, data_done):
     totals, weights = {}, Path(tmp) / "weights"
     weights.mkdir()
     originals = {}
-    for name, cls in (("unet", SDUNet), ("vae", AutoencoderKL)):
+    # The UNet at SD1.5's widths and PREP_UNET_CUT's depth: ``train-latent --weights-dir`` reads both towers.
+    for name, make in (("unet", lambda: SDUNet(**PREP_UNET_CUT)), ("vae", AutoencoderKL)):
         torch.manual_seed(PREP_SEEDS[name])
-        module = originals[name] = cls()
+        module = originals[name] = make()
         t0 = time.perf_counter()
         sd = export_diffusers_tree(module)
         t1 = time.perf_counter()
@@ -2202,30 +2346,33 @@ def prep_weights(torch, tmp, converted, data_done):
         emit({"phase": "prep_weights", "model": name, "tensors": n_tensors, "fp32_bytes": n_bytes,
               "npz_bytes": os.path.getsize(weights / f"{name}.npz"), "export_s": t1 - t0,
               "safetensors_write_s": t2 - t1, "convert_weights_s": time.perf_counter() - t2,
-              "read_s": res["read_s"], "convert_s": res["convert_s"], "write_s": res["write_s"]})
+              "read_s": res["read_s"], "convert_s": res["convert_s"], "write_s": res["write_s"],
+              **({"cut": PREP_UNET_CUT} if name == "unet" else {})})
         os.remove(src)
     converted.set()
     t0 = time.perf_counter()
     data_done.wait()
     emit({"phase": "prep_weights", "waited_for_leg_b_s": time.perf_counter() - t0})
     torch.manual_seed(PREP_SEEDS["controlnet"])
-    cn = ControlNet()
+    cn = ControlNet(**PREP_UNET_CUT)  # the serving ControlNet, of the converted UNet's shape
     for name, m in cn.named_modules():  # zero convs given random values, as ``latent_modules`` does
         if isinstance(m, nn.Conv2d) and (name.startswith("controlnet_") or name.endswith("cond_embedding.conv_out")):
             m.reset_parameters()
-    expect = latent_train_expect(originals["unet"], cn, originals["vae"], "controlnet", 256, False)
-    # ``train-latent`` reads the .npz into fresh towers (``load_flax_params``), which it keeps frozen: those
-    # are the reloaded modules, held bitwise to the originals.
+    expect = latent_train_expect(originals["unet"], cn, originals["vae"], "controlnet", 256, False,
+                                 stated=PREP_TRAIN_STATED)
+    # ``train-latent`` reads both .npz files into fresh towers (``load_flax_params``; the UNet at the tree's
+    # depth, ``sd_unet_shape``), which it keeps frozen: each held bitwise to its original.
     argv = ["train-latent", *PREP_TRAIN, "--weights-dir", str(weights), "--out", f"{tmp}/tl"]
     (res, counts, trace), heads = recording_heads(lambda: traced_command(
         torch, "train-latent --weights-dir", lambda: cli.run(argv), lambda r: r["step"].graph, expect, 2))
     add_counts(totals, counts)
     state = res["state"]
     reloaded = {}
-    for key in ("unet", "vae"):
-        mine = dict(originals[key].named_parameters())
-        same = [torch.equal(p, mine[k]) for k, p in res[key].named_parameters()]
-        reloaded[key] = {"parameters": len(same), "bitwise_equal": sum(same)}
+    for name in ("unet", "vae"):
+        mine = dict(originals[name].named_parameters())
+        same = [torch.equal(p, mine[k]) for k, p in res[name].named_parameters()]
+        reloaded[name] = {"parameters": len(same), "bitwise_equal": sum(same)}
+    reloaded["unet"]["cut"] = PREP_UNET_CUT
     ok = (state.step == 2 and all(v["parameters"] == v["bitwise_equal"] > 0 for v in reloaded.values())
           and all(bool(torch.isfinite(p).all()) for p in state.params.values()))
     emit({"phase": "prep_train_latent", **trace, **_run_record(f"{tmp}/tl"), "step": state.step,
@@ -2444,13 +2591,16 @@ def prep_registration(torch, tmp, hr, lr, card_free, n4_done, device="cuda"):
     def timed_n4(volume, *args, **kw):  # the dataset corrects its two volumes on a thread each
         local.iterations = 0
         t0 = time.perf_counter()
-        out = n4(volume, *args, **kw)
+        out = n4(volume, *args, **{**kw, "max_iterations": PREP_N4_ITERATIONS})
         timings["n4_s"].append(time.perf_counter() - t0)
         timings["n4_iterations"].append(local.iterations)
         return out
 
     def register(fixed, moving):
         seen.update(fixed=fixed, moving=moving)
+        # the same registration on the CPU (the comparison's), on a thread while the card is awaited
+        seen["cpu"] = on_host_thread(torch, lambda: registration.rigid_params(fixed, moving, device="cpu").numpy(),
+                                     no_grad=False)
         n4_done.set()
         t_wait = time.perf_counter()
         timings["n4_wall_s"] = t_wait - t_start
@@ -2472,9 +2622,7 @@ def prep_registration(torch, tmp, hr, lr, card_free, n4_done, device="cuda"):
         dataset_s = time.perf_counter() - t_start
     finally:
         bias_correction.n4_bias_correction, bias_correction._smooth_field = n4, smooth
-    t0 = time.perf_counter()
-    cpu = registration.rigid_params(seen["fixed"], seen["moving"], device="cpu").numpy()
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = seen["cpu"].result()
     card = seen["params"]
     item = ds[len(ds) // 2]
     inside = lr > 0  # the field N4 found in the LR against the one put in (log domain, inside the head)
@@ -2489,7 +2637,8 @@ def prep_registration(torch, tmp, hr, lr, card_free, n4_done, device="cuda"):
           "simpleitk": registration._has_sitk(), "card_params": card.tolist(), "cpu_params": cpu.tolist(),
           "motion_abs_err": motion_err.tolist(), "motion_tol": list(PREP_MOTION_TOL),
           "card_vs_cpu_max_abs": float(np.abs(card - cpu).max()), "card_vs_cpu_tol": PREP_CPU_TOL,
-          "cpu_register_fit_s": cpu_s, "dataset_s": dataset_s, "slices": len(ds), **timings,
+          "cpu_register_fit_s": cpu_s, "dataset_s": dataset_s, "slices": len(ds),
+          "n4_max_iterations": PREP_N4_ITERATIONS, **timings,
           "n4_field_log_std": float(found.std()), "bias_log_std": float(put.std()),
           "n4_field_corr": float(np.corrcoef(found, put)[0, 1]), "ok": ok}
 
@@ -2885,6 +3034,404 @@ def phase_parity(torch):
     return totals
 
 
+# Phase ``tail``: the port's last modules on the card.  (a) The fused ControlNet+UNet towers (the default form)
+# against the towers one after the other, at SD1.5's widths; (b) the int8 profile; (c) the mesh legs of
+# ``parallel/dryrun.py`` at world size 1 over NCCL; (d) SDXL's two text towers at full width against the CPU.
+# Every bar is stated here, before the run.
+TAIL_EPS = (512, 2)  # one fp32 eps-prediction, fused against unfused: condition size, batch
+TAIL_EPS_TOL = dict(atol=2e-4, rtol=2e-4)  # the reference's own bar for fused == unfused
+TAIL_CHAIN_TOL = 1e-3  # the 20-step chains (fp32 compute, bf16 weights): max |fused - unfused|, pixels in [-1, 1]
+TAIL_TRAIN = (1024, 1)  # the ControlNet training step from cached latents: condition size, batch
+TAIL_TRAIN_REPLAYS = 3
+TAIL_GRAD_TOL = 1e-4  # fused against unfused, per parameter: ||g_fused - g_unfused|| <= TAIL_GRAD_TOL ||g_unfused||
+TAIL_INT8_REPS = 2
+SDXL_PROMPTS = ["a t1-weighted brain mri slice", "low field mri, axial"]
+SDXL_TOL = 1e-4  # card against CPU, fp32, TF32 off: max |err| over max |ref|, prompt embeddings and pooled
+
+
+def tail_eps(torch):
+    """(a) One fp32 eps-prediction at ``TAIL_EPS``, fused towers against unfused (TF32 off): error, ms, launches.
+    -> the fused call's B3 heads ({(shape, groups, eps, dtype): calls})."""
+    from mrisr_torch.models.controlnet import embed_condition
+    from mrisr_torch.models.fused import fused_eps, stack_tower_params
+
+    unet, cn, _ = latent_modules(torch, torch.float32, seed=50)
+    size, b = TAIL_EPS
+    lat = size // 8
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    x = torch.randn((b, 4, lat, lat), generator=gen, device="cuda")
+    cond = torch.rand((b, 3, size, size), generator=gen, device="cuda") * 2 - 1
+    ctx = torch.randn((b, 77, 768), generator=gen, device="cuda")
+    t = torch.tensor([500, 20][:b] + [999] * max(0, b - 2), device="cuda")
+
+    def unfused():
+        down, mid = cn(x, t, ctx, cond_embedding=emb)
+        return unet(x, t, ctx, down_block_additional_residuals=down, mid_block_additional_residual=mid)
+
+    def fused():
+        stacked = stack_tower_params(unet, dict(unet.named_parameters()), dict(cn.named_parameters()))
+        return fused_eps(unet, cn, stacked, x, t, ctx, emb)
+
+    with torch.no_grad():
+        emb = embed_condition(cn, cond)
+        want, unfused_counts = counted(torch, unfused)
+        (got, heads), fused_counts = counted(torch, lambda: recording_heads(fused))
+        ms = {"unfused": cuda_ms(torch, unfused), "fused": cuda_ms(torch, fused)}
+    err = (got - want).abs()
+    expect = {True: {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                     "group_norm_silu": 45},
+              False: {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                      "group_norm_silu": 65}}
+    ok = (bool((err <= TAIL_EPS_TOL["atol"] + TAIL_EPS_TOL["rtol"] * want.abs()).all())
+          and fused_counts == expect[True] and unfused_counts == expect[False])
+    rec = {"phase": "tail", "leg": "fused_eps", "size": size, "batch": b, "dtype": "float32", "tf32": False,
+           "max_abs_err": float(err.max()), "ref_abs_max": float(want.abs().max()),
+           "rms_err_over_rms_ref": float(err.square().mean().sqrt() / want.square().mean().sqrt()),
+           "tolerance": TAIL_EPS_TOL, "ms": ms, "launches": {"fused": fused_counts, "unfused": unfused_counts},
+           "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"tail: the fused eps-prediction disagrees with the unfused one: {rec}")
+    del unet, cn
+    return heads
+
+
+def tail_chains(torch, totals):
+    """(a) The graphed 512^2 bs-8 and 1024^2 bs-2 ControlNet chains (phase ``latent``'s modules and inputs) in
+    both forms: the unfused ones here (first call: warm-up, capture and a replay, counted; then one replay
+    traced, ``replayed``), the fused ones from phase ``latent`` (or here, when it did not run); ms of the
+    traced replay, its launches (the graph's kernel nodes times the graph launches in its trace), and the two
+    outputs compared."""
+    prompt = torch.randn((1, 77, 768), generator=torch.Generator().manual_seed(20)).to(torch.bfloat16)
+    unet, cn, vae = latent_modules(torch, torch.bfloat16)
+    for case, batch, size in LATENT_CHAINS:
+        runs = {}
+        for fused in (True, False):
+            if (size, fused) in LATENT_RUNS:
+                runs[fused] = dict(LATENT_RUNS[size, fused], source="phase latent (traced replay's wall)")
+                continue
+            pipe, expect = latent_pipeline(torch, unet, cn, vae, prompt, size, fused=fused)
+            lr, noise = latent_inputs(torch, pipe, batch, size)
+            run = lambda: pipe.super_resolve(lr, num_steps=LATENT_STEPS, noise=noise)  # noqa: E731,B023
+            what = f"tail latent {size} fused={fused}"
+            t0 = time.perf_counter()
+            _, first = counted(torch, run)  # eager warm-up, capture (counted), one replay
+            first_s = time.perf_counter() - t0
+            if first != {k: 2 * n for k, n in expect.items()}:
+                raise AssertionError(f"{what}: first call {first}, expected twice {expect}")
+            add_counts(totals, first)
+            out, launches, prof = replayed(torch, run, pipe, 1, f"{what} graph replay", None, expect)
+            add_counts(totals, launches)
+            runs[fused] = {"out": out, "chain_ms": prof["profiled_chain_ms"], "launches": launches,
+                           "first_call_s": first_s, "source": "phase tail (traced replay's wall)"}
+            del pipe
+            release_memory(torch, f"tail latent {size} fused={fused}")
+        diff = (runs[True]["out"].float() - runs[False]["out"].float()).abs()
+        ok = float(diff.max()) <= TAIL_CHAIN_TOL
+        emit({"phase": "tail", "leg": "fused_chain", "case": case, "batch": batch, "size": size,
+              "steps": LATENT_STEPS, "weights": "bfloat16", **{
+                  ("fused" if f else "unfused"): {k: v for k, v in r.items() if k != "out"} for f, r in runs.items()},
+              "fused_over_unfused_ms": runs[True]["chain_ms"] / runs[False]["chain_ms"],
+              "max_abs_diff": float(diff.max()), "rms_diff": float(diff.square().mean().sqrt()),
+              "tolerance": TAIL_CHAIN_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"tail: the fused and unfused {size}^2 chains differ by {float(diff.max())}")
+    del unet, cn, vae
+
+
+def tail_train(torch, totals):
+    """(a) The 1024^2 ControlNet training step from cached latents (fp32, phase ``latent_train``'s modules) in
+    both forms: graphed (first call: two eager warm-ups, the capture and a replay, counted), then
+    ``TAIL_TRAIN_REPLAYS`` replays traced (``replayed``: their launches are the graph's kernel nodes times the
+    graph launches in the trace, ms a step their traced wall over the replays); then one eager step of each
+    with fixed draws, gradient by gradient."""
+    from mrisr_torch.diffusion.schedules import sd15_schedule
+    from mrisr_torch.train import latent
+    from mrisr_torch.train.state import Optimizer, create_train_state
+    from mrisr_torch.train.steps import step_generator
+
+    torch.backends.cudnn.deterministic = True
+    unet, cn, vae = latent_modules(torch, torch.float32, seed=40)
+    gen = torch.Generator().manual_seed(45)
+    prompt = (0.02 * torch.randn((1, 77, 768), generator=gen)).cuda()
+    empty = torch.zeros((1, 77, 768), device="cuda")
+    size, batch = TAIL_TRAIN
+    lat = size // 8
+    data = latent_train_batch(torch, batch, size, 42, vae)
+    rec = {"phase": "tail", "leg": "fused_train_step", "size": size, "batch": batch, "cached_latents": True,
+           "dtype": "float32"}
+    for fused in (True, False):
+        expect = latent_train_expect(unet, cn, vae, "controlnet", size, True, fused)
+        state, step = latent_train_step(torch, unet, cn, vae, "controlnet", True, prompt, empty, fused=fused)
+        _, first = counted(torch, lambda: step(state, data, step_generator(43, 0, "cuda")))  # noqa: B023
+        if first != {k: 3 * n for k, n in expect.items()}:
+            raise AssertionError(f"tail: train step fused={fused}: first call {first}, expected three times "
+                                 f"{expect}")
+        add_counts(totals, first)
+
+        def replays(state=state, step=step):
+            for i in range(TAIL_TRAIN_REPLAYS):
+                step(state, data, step_generator(43, 1 + i, "cuda"))
+
+        _, launches, prof = replayed(torch, replays, _OneGraph(step), TAIL_TRAIN_REPLAYS,
+                                     f"tail train step fused={fused} replays", None, expect)
+        add_counts(totals, launches)
+        rec["fused" if fused else "unfused"] = {
+            "step_ms": prof["profiled_chain_ms"] / TAIL_TRAIN_REPLAYS, "launches": launches,
+            "graph_kernel_nodes": prof["graph_kernel_nodes"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, step
+        release_memory(torch, f"tail train fused={fused}")
+    sched = sd15_schedule()
+    g = torch.Generator(device="cuda").manual_seed(44)
+    draws = {k: torch.randn((batch, 4, lat, lat), generator=g, device="cuda") for k in ("hr_noise", "lr_noise", "eps")}
+    draws["t"] = torch.tensor([400] * batch, device="cuda")
+    grads, losses = {}, {}
+    for fused in (True, False):
+        seen = {}
+
+        def record(gr, opt_state, params, seen=seen):  # keeps the gradients, moves nothing
+            seen.update(gr)
+            return {k: torch.zeros_like(v) for k, v in gr.items()}, opt_state
+
+        state = create_train_state(cn, Optimizer(lambda p: {}, record), device="cuda")
+        step = latent.make_controlnet_train_step(unet, cn, vae, sched, prompt, latents_cached=True, device="cuda",
+                                                 cuda_graph=False, fused=fused)
+        _, m = step(state, data, None, draws)
+        grads[fused], losses[fused] = {k: v.clone() for k, v in seen.items()}, float(m["loss"])
+        del state, step
+    rel = {k: float((grads[True][k] - g_).norm() / g_.norm().clamp_min(1e-30)) for k, g_ in grads[False].items()}
+    worst = max(rel, key=rel.get)
+    ok = rel[worst] <= TAIL_GRAD_TOL and abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[False])
+    rec.update(fused_over_unfused_ms=rec["fused"]["step_ms"] / rec["unfused"]["step_ms"],
+               loss=losses, leaves=len(rel), worst_leaf=worst, worst_rel_l2=rel[worst],
+               median_rel_l2=sorted(rel.values())[len(rel) // 2], tolerance=TAIL_GRAD_TOL, ok=ok)
+    emit(rec)
+    torch.backends.cudnn.deterministic = False
+    if not ok:
+        raise AssertionError(f"tail: the fused training step's gradients differ from the unfused one's: {rec}")
+    del unet, cn, vae, grads
+
+
+def tail_int8(torch, totals):
+    """(b) ``int8_conv`` on the card against its plain version on the CPU at every int8 conv shape of the bs-8
+    256^2 UNet (bitwise), each timed beside the exact bf16 conv; the bs-8 bf16 fast chain with ``conv_int8``
+    (graphed: launches from its nodes, ms) beside the same chain exact; the int8 profile on the trained
+    checkpoint against exact, one eager chain each, PSNR per image (fp32; information, no bar).  Each graphed
+    chain's first call (warm-up, capture, a replay) is counted, then ``TAIL_INT8_REPS`` replays are traced
+    (``replayed``: launches from the graph's kernel nodes times the graph launches in the trace)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from mrisr_torch.models.layers import PlainConvInt8
+    from mrisr_torch.ops.quant import int8_conv
+    from mrisr_torch.utils.flax_msgpack import read_msgpack
+
+    pipe = serving_pipeline(torch, 8, conv_int8=True)
+    shapes = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.update([(tuple(args[0].shape), tuple(mod.weight.shape))]))
+        for m in pipe.unet.modules() if isinstance(m, PlainConvInt8)]
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    with torch.no_grad():
+        pipe.unet(torch.randn((BATCH, 2, SIZE, SIZE), generator=gen, device="cuda").to(torch.bfloat16),
+                  torch.rand((BATCH,), generator=gen, device="cuda"))
+    for h in hooks:
+        h.remove()
+    convs, cpu_inputs = [], []
+    for (xs, ws), calls in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0][0])):
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(ws, generator=gen, device="cuda") / math.sqrt(ws[1] * 9)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(ws[:1], generator=gen, device="cuda")).to(torch.bfloat16)
+        convs.append({"x": list(xs), "w": list(ws), "calls_a_step": calls, "got": int8_conv(x, w, b).cpu(),
+                      "int8_ms": cuda_ms(torch, lambda: int8_conv(x, w, b), 50.0),  # noqa: B023
+                      "exact_bf16_ms": cuda_ms(torch, lambda: F.conv2d(x, w, b, padding=1), 50.0)})  # noqa: B023
+        cpu_inputs.append((x.cpu(), w.cpu(), b.cpu()))
+
+    def plain_on_cpu():  # host work: on a thread beside the chains below
+        out = []
+        for args in cpu_inputs:
+            t0 = time.perf_counter()
+            out.append((int8_conv(*args), time.perf_counter() - t0))
+        return out
+
+    plain = concurrent.futures.ThreadPoolExecutor(1).submit(plain_on_cpu)
+    lr = (torch.rand((BATCH, SIZE, SIZE, 1), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    x_T = torch.randn((BATCH, SIZE, SIZE, 1), generator=gen, device="cuda").to(torch.bfloat16)
+    chains = {}
+    for name, p in (("int8", pipe), ("exact_convs", None)):
+        p = p or serving_pipeline(torch, 8)
+        run = lambda: p.super_resolve(lr, x_T=x_T, num_steps=STEPS)  # noqa: E731,B023
+        out, first = counted(torch, run)
+        if first != {k: 2 * n for k, n in chain_expect(STEPS).items()}:
+            raise AssertionError(f"tail: {name} chain: first call {first}")
+        add_counts(totals, first)
+        _, launches, prof = replayed(torch, lambda: [run() for _ in range(TAIL_INT8_REPS)],  # noqa: B023
+                                     p, TAIL_INT8_REPS, f"tail {name} chain replays", None, chain_expect(STEPS))
+        add_counts(totals, launches)
+        chains[name] = {"chain_ms": prof["profiled_chain_ms"] / TAIL_INT8_REPS, "launches": launches,
+                        "graph_kernel_nodes": prof["graph_kernel_nodes"], "out": out}
+        del p
+    diff = (chains["int8"]["out"].float() - chains["exact_convs"]["out"].float()).abs()
+    emit({"phase": "tail", "leg": "int8_chain", "batch": BATCH, "size": SIZE, "steps": STEPS, "dtype": "bfloat16",
+          "profile": "fast kv_pool=8", **{k: {kk: vv for kk, vv in v.items() if kk != "out"} for k, v in chains.items()},
+          "int8_over_exact_ms": chains["int8"]["chain_ms"] / chains["exact_convs"]["chain_ms"],
+          "max_abs_diff_vs_exact_convs": float(diff.max())})
+    del pipe, chains
+    release_memory(torch, "tail int8 chains")
+    bad = []
+    for c, (want, cpu_s) in zip(convs, plain.result()):
+        got = c.pop("got")
+        c.update(bitwise_equal=torch.equal(got, want), max_abs_err=float((got.float() - want.float()).abs().max()),
+                 plain_cpu_s=cpu_s)
+        if not c["bitwise_equal"]:
+            bad.append(c)
+    emit({"phase": "tail", "leg": "int8_conv", "shapes": len(convs), "convs": convs,
+          "int8_ms_a_step": sum(c["int8_ms"] * c["calls_a_step"] for c in convs),
+          "exact_bf16_ms_a_step": sum(c["exact_bf16_ms"] * c["calls_a_step"] for c in convs), "ok": not bad})
+    if bad:
+        raise AssertionError(f"tail: int8_conv on the card differs from its plain version: {bad}")
+    tree = read_msgpack(CKPT)
+    ref = np.load(CKPT_REF)
+    cond, x_T, hr = (torch.from_numpy(ref[k]).cuda() for k in ("cond", "x_T", "hr"))
+    psnr = {}
+    for name, int8 in (("exact", False), ("int8", True)):
+        p = checkpoint_pipeline(torch, tree, 0, torch.float32, conv_int8=int8)
+        p.cuda_graph = False  # one chain each: eager, no capture
+        out, counts = counted(torch, lambda: p.super_resolve(cond, x_T=x_T, num_steps=STEPS))  # noqa: B023
+        if counts != chain_expect(STEPS):
+            raise AssertionError(f"tail: checkpoint {name} chain launched {counts}")
+        add_counts(totals, counts)
+        psnr[name] = psnr_ssim(torch, out, hr)[0]
+        del p
+    emit({"phase": "tail", "leg": "int8_checkpoint", "checkpoint": CKPT, "dtype": "float32", "steps": STEPS,
+          "profile": "exact kv", "psnr_exact": psnr["exact"], "psnr_int8": psnr["int8"],
+          "delta_db": [a - b for a, b in zip(psnr["int8"], psnr["exact"])],
+          "note": "information: the reference never measured the int8 profile's fidelity"})
+
+
+def tail_mesh(torch):
+    """(c) The five mesh legs (``parallel/dryrun.py::run_legs``) in this process at world size 1 over NCCL, each
+    held there to its no-mesh result.  -> the wrappers' counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mrisr_torch.parallel.dryrun import run_legs
+
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group("nccl", init_method=f"file://{td}/rendezvous", rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            res, counts = counted(torch, lambda: run_legs("cuda"))
+            seconds = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "tail", "leg": "mesh", "seconds": seconds, **res, "wrapper_counts": counts, "ok": True})
+    return counts
+
+
+def tail_sdxl(torch):
+    """(d) SDXL's two text towers at full width (ViT-L 768 x 12 and bigG 1280 x 32, random weights from fixed
+    seeds, fp32) on ``SDXL_PROMPTS`` through ``compute_embeddings_sdxl``, card against CPU."""
+    import copy
+
+    from mrisr_torch.models.clip_text import CLIPTextEncoder, HashTokenizer
+    from mrisr_torch.models.sdxl_text import CLIPTextEncoderWithProjection, compute_embeddings_sdxl
+
+    torch.manual_seed(70)
+    towers = (CLIPTextEncoder(device="cuda"), CLIPTextEncoderWithProjection(device="cuda"))
+    cpu = tuple(copy.deepcopy(t).cpu() for t in towers)
+    toks = (HashTokenizer(), HashTokenizer())
+    out, secs = {}, {}
+    for name, tw in (("card", towers), ("cpu", cpu)):
+        compute_embeddings_sdxl(tw, toks, SDXL_PROMPTS[:1])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = compute_embeddings_sdxl(tw, toks, SDXL_PROMPTS)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    errs = {}
+    for k in ("prompt_embeds", "text_embeds"):
+        got, want = out["card"][k].cpu(), out["cpu"][k]
+        errs[k] = float((got - want).abs().max() / want.abs().max())
+    ok = (max(errs.values()) <= SDXL_TOL and torch.equal(out["card"]["time_ids"].cpu(), out["cpu"]["time_ids"])
+          and tuple(out["card"]["prompt_embeds"].shape) == (len(SDXL_PROMPTS), 77, 768 + 1280)
+          and tuple(out["card"]["text_embeds"].shape) == (len(SDXL_PROMPTS), 1280))
+    rec = {"phase": "tail", "leg": "sdxl_text", "prompts": len(SDXL_PROMPTS), "dtype": "float32", "tf32": False,
+           "parameters": [sum(p.numel() for p in t.parameters()) for t in towers], "seconds": secs,
+           "max_abs_err_over_max_ref": errs, "tolerance": SDXL_TOL, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"tail: SDXL text towers on the card disagree with the CPU: {rec}")
+    del towers, cpu
+
+
+def phase_tail(torch):
+    """The last modules of the port (``tail_eps``, ``tail_chains``, ``tail_train``, ``tail_int8``,
+    ``tail_mesh``, ``tail_sdxl``); then B1, the B2 pair and B3 against their plain versions at every (shape,
+    dtype) the legs launched them at (``recording_shapes``), and timed at the fused towers' new shapes: B3 at
+    2 x 32 groups at each SD width (fp32, bs 8 at 512^2: the fused eps-prediction's heads at the chain's batch;
+    B1 and the B2 pair at the fused towers' shapes are timed in phases ``latent`` and ``kernel``,
+    ``FLASH_SD`` and ``FLASH_SD_BWD``).  -> the path's launches: the wrappers' counts of eager runs and
+    captures, plus the graphs' kernel nodes times the graph launches in traces of their replays (``replayed``,
+    the wrappers held at 0 there)."""
+    import torch.nn.functional as F
+
+    totals, seconds = {}, {}
+    shapes = collections.defaultdict(collections.Counter)
+
+    def leg(name, run):
+        t0 = time.perf_counter()
+        out, seen = recording_shapes(run)
+        seconds[name] = time.perf_counter() - t0
+        for wrapper, keys in seen.items():
+            shapes[wrapper].update(keys)
+        release_memory(torch, f"tail {name}")
+        return out
+
+    fused_heads = leg("fused_eps", lambda: tail_eps(torch))
+    leg("fused_chains", lambda: tail_chains(torch, totals))
+    leg("fused_train", lambda: tail_train(torch, totals))
+    leg("int8", lambda: tail_int8(torch, totals))
+    add_counts(totals, leg("mesh", lambda: tail_mesh(torch)))
+    leg("sdxl", lambda: tail_sdxl(torch))
+    t0 = time.perf_counter()
+    worst = {"group_norm_silu": 0.0, "flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    for (shape, groups, eps, dtype) in sorted(shapes["group_norm_silu"], key=str):
+        rec = check_gn(torch, F, dtype, "tail_head", shape, groups, timed=False, eps=eps)
+        worst["group_norm_silu"] = max(worst["group_norm_silu"], rec["err_over_limit"])
+    for (b, n, m, d, dtype) in sorted(shapes["flash_attention_fwd"], key=str):
+        rec = check_flash(torch, F, dtype, "tail_site", b, n, m, d, timed=False)
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], rec["o_err_over_limit"])
+    for (b, n, m, d, dtype) in sorted(shapes["flash_attention_bwd"], key=str):
+        recs = check_flash_bwd(torch, F, dtype, "tail_site", b, n, m, d, timed=False)
+        worst["flash_attention_bwd"] = max([worst["flash_attention_bwd"]] + [
+            e["err_over_limit"] for r in recs.values() for e in r["errors"].values()])
+    seconds["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain = dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
+    fused_calls = 0
+    for (shape, groups, eps, dtype), calls in sorted(fused_heads.items(), key=lambda kv: -math.prod(kv[0][0])):
+        if groups != 64:
+            continue
+        shape = (BATCH, *shape[1:])  # at the 512^2 chain's batch
+        rec = check_gn(torch, F, dtype, "sd_fused_head", shape, groups, timed=True, eps=eps, brief=True)
+        per_chain = calls * LATENT_STEPS
+        fused_calls += per_chain
+        emit({"phase": "tail_head", "shape": list(shape), "groups": groups, "dtype": rec["dtype"],
+              "calls_a_512_chain": per_chain})
+        for k in chain:
+            chain[k] += per_chain * rec[k]
+    emit({"phase": "tail_head_totals", "dtype": "float32", "calls_a_chain": fused_calls,
+          **{f"{k}_a_chain": v for k, v in chain.items()}})
+    seconds["timed_checks"] = time.perf_counter() - t0
+    checked = {w: sorted([list(k[:-1]) + [str(k[-1]).split(".")[-1]] for k in keys], key=str)
+               for w, keys in shapes.items()}
+    emit({"phase": "tail", "leg": "summary", "seconds": seconds, "shapes_checked": checked,
+          "worst_err_over_limit": worst, "launches": totals})
+    return totals
+
+
 KERNELS = [  # (name, route, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "cuda", "mrisr_torch/csrc/flash_attn_fwd.cu", "mrisr_tpu/ops/flash_attention.py:98"),
     ("flash_attention_bwd_dq", "cuda", "mrisr_torch/csrc/flash_attn_bwd.cu", "mrisr_tpu/ops/flash_attention.py:228"),
@@ -2912,9 +3459,10 @@ def summary(recs, path_launches):
 
 
 PHASES = ("kernel", "chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "forward", "train",
-          "cli", "parity", "grad", "bench")
+          "cli", "parity", "tail", "grad", "bench")
 # Paths whose launches the kernels line counts; serving paths launch no backward kernel.
-MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "train", "cli", "parity")
+MAIN_PATHS = ("chain", "checkpoint", "volume", "ddpm", "latent", "latent_train", "prep", "train", "cli", "parity",
+              "tail")
 
 
 def main(argv) -> int:
@@ -2952,7 +3500,8 @@ def main(argv) -> int:
     for name, run in (("kernel", phase_kernels), ("chain", phase_chain), ("checkpoint", phase_checkpoint),
                       ("volume", phase_volume), ("ddpm", phase_ddpm), ("latent", phase_latent),
                       ("latent_train", phase_latent_train), ("prep", phase_prep), ("forward", phase_forward),
-                      ("train", phase_train), ("cli", phase_cli), ("parity", phase_parity), ("grad", phase_grad),
+                      ("train", phase_train), ("cli", phase_cli), ("parity", phase_parity), ("tail", phase_tail),
+                      ("grad", phase_grad),
                       ("bench", phase_bench)):
         if name not in phases:
             continue

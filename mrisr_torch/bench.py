@@ -7,6 +7,9 @@ Run from the repository root on a machine with a CUDA card::
     python3 -m mrisr_torch.bench --no-graph      # the same chains run eagerly, for the A/B
     python3 -m mrisr_torch.bench --pipeline latent            # ControlNet mode, CUDA graph
     python3 -m mrisr_torch.bench --pipeline latent --adapter  # T2I-Adapter mode
+    python3 -m mrisr_torch.bench --int8          # the int8 profile (ResDiff)
+    python3 -m mrisr_torch.bench --pipeline latent --no-fused  # towers one after the other (--fused: forced on)
+    python3 -m mrisr_torch.bench --pipeline latent --no-fused --no-precompute-cond  # condition embedded each step
 
 The ResDiff workload is the one ``bench.py`` times for the JAX package:
 SimpleCNN + ResDiffUNet at full width with random weights from fixed seeds,
@@ -70,6 +73,15 @@ def parse_args(argv):
                     help="K/V pool factor at the large cross-attention sites (0: the exact profile)")
     ap.add_argument("--fast-min-tokens", type=int, default=4096,
                     help="smallest cross-attention site (tokens) whose K/V are pooled")
+    ap.add_argument("--int8", action="store_true",
+                    help="resdiff: the int8 profile (the interior ResnetBlock 3x3 convs in dynamic int8)")
+    ap.add_argument("--no-precompute-cond", action="store_true",
+                    help="latent: embed the ControlNet's condition image inside every step, not once a chain")
+    fuse = ap.add_mutually_exclusive_group()
+    fuse.add_argument("--fused", action="store_true",
+                      help="latent: the fused UNet+ControlNet encoder towers (the default when the configs match)")
+    fuse.add_argument("--no-fused", action="store_true",
+                      help="latent: the two encoder towers one after the other")
     ap.add_argument("--chains", type=int, help="chains of --batch slices a call (default 8 resdiff, 1 latent)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the inputs and of the chains' noise")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (a tiny smoke configuration)")
@@ -95,11 +107,13 @@ def resdiff_pipeline(args, torch, device, dtype):
     cnn = SimpleCNN(device=device).to(dtype)
     torch.manual_seed(1)
     unet = ResDiffUNet(image_size=args.size, ca_kv_pool=args.fast, ca_kv_pool_min_tokens=args.fast_min_tokens,
-                       device=device, **unet_kwargs).to(dtype)
+                       conv_int8=args.int8, device=device, **unet_kwargs).to(dtype)
     pipe = ResDiffPipeline(cnn, unet, resdiff_schedule(1000), device=device, cuda_graph=not args.no_graph)
     profile = f", fast kv_pool={args.fast}" if args.fast > 1 else ", exact"
     if args.fast > 1 and args.fast_min_tokens != 4096:
         profile += f", min_tokens={args.fast_min_tokens}"
+    if args.int8:
+        profile += ", int8 convs"
     metric = (f"ResDiff SR slices/sec/gpu ({args.steps}-step DDIM {args.size}x{args.size}, bs={args.batch}, "
               f"{args.dtype}{profile}, {max(args.chains, 1)} chains/call, "
               f"{'CUDA graph' if pipe.cuda_graph else 'eager'})")
@@ -127,11 +141,15 @@ def latent_pipeline(args, torch, device, dtype):
     torch.manual_seed(args.seed + 2)
     vae = AutoencoderKL(**vae_kw, device=device).to(dtype)
     prompt = torch.randn(ctx_shape, generator=torch.Generator().manual_seed(args.seed + 3)).to(dtype)
+    fused = True if args.fused else False if args.no_fused else None
     pipe = LatentSRPipeline(unet, None if args.adapter else side, vae, sd15_schedule(), prompt,
+                            precompute_cond=not args.no_precompute_cond, fused_towers=fused,
                             adapter=side if args.adapter else None, device=device, cuda_graph=not args.no_graph)
     f = args.size // 8
+    towers = ("" if args.adapter else ", fused towers" if pipe.fused_towers else ", sequential towers"
+              + ("" if pipe.precompute_cond else ", condition embedded every step"))
     metric = (f"Latent SR slices/sec/gpu ({args.steps}-step {'T2I-Adapter' if args.adapter else 'ControlNet'}+SDUNet"
-              f"+VAE, {args.size}x{args.size} cond, {f}x{f} latents, bs={args.batch}, {args.dtype}, "
+              f"+VAE, {args.size}x{args.size} cond, {f}x{f} latents, bs={args.batch}, {args.dtype}{towers}, "
               f"{max(args.chains, 1)} chains/call, {'CUDA graph' if pipe.cuda_graph else 'eager'})")
     return pipe, metric
 

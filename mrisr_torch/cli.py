@@ -570,7 +570,9 @@ def _train_latent(args):
     """PEFT training of the latent family (the reference's hyperparameters: lr 1e-5, cosine schedule with 500
     warmup steps, AdamW, gradient-norm clip 1.0, CFG dropout 0.1), fp32 weights and states, a fixed random
     prompt embedding.  The modules are random from ``--seed`` unless ``--weights-dir`` holds converted
-    ``unet.npz`` / ``vae.npz``.  ``--precision``, ``--remat`` and ``--val-every`` are parsed and not acted
+    ``unet.npz`` / ``vae.npz``; a ``unet.npz`` also gives the UNet's depth and widths (``sd_unet_shape``; the
+    reference builds SD1.5's and takes only a tree of that shape), and the ControlNet follows the UNet.
+    ``--precision``, ``--remat`` and ``--val-every`` are parsed and not acted
     on, as in the reference (a line on stderr names those set)."""
     import torch
 
@@ -586,6 +588,7 @@ def _train_latent(args):
     from mrisr_torch.train.steps import step_generator
     from mrisr_torch.utils.checkpoint import CheckpointManager
     from mrisr_torch.utils.logging import MetricLogger
+    from mrisr_torch.weights import load_flax_params, load_params_npz, sd_unet_shape
 
     ignored = [flag for flag, on in ((f"--precision {args.precision}", args.precision != "float32"),
                                      ("--remat", args.remat), (f"--val-every {args.val_every}", args.val_every))
@@ -595,18 +598,21 @@ def _train_latent(args):
     device = _device(args)
     cfg = LATENT_TINY if args.tiny else LATENT_SD15
     ctx_len, ctx_dim = cfg["context"]
-    torch.manual_seed(args.seed)
-    unet = SDUNet(**cfg["unet"], device=device)
-    vae = AutoencoderKL(**cfg["vae"], device=device)
+    trees = {}
     if args.weights_dir:
         from pathlib import Path
 
-        from mrisr_torch.weights import load_flax_params, load_params_npz
-
-        for name, module in (("unet", unet), ("vae", vae)):
-            path = Path(args.weights_dir) / f"{name}.npz"
-            if path.exists():
-                load_flax_params(module, load_params_npz(path))
+        trees = {name: load_params_npz(path) for name in ("unet", "vae")
+                 if (path := Path(args.weights_dir) / f"{name}.npz").exists()}
+    unet_kw = dict(cfg["unet"])
+    if "unet" in trees:  # the UNet takes the depth and widths of the tree it is given
+        unet_kw.update(sd_unet_shape(trees["unet"]))
+    torch.manual_seed(args.seed)
+    unet = SDUNet(**unet_kw, device=device)
+    vae = AutoencoderKL(**cfg["vae"], device=device)
+    for name, module in (("unet", unet), ("vae", vae)):
+        if name in trees:
+            load_flax_params(module, trees[name])
     gen = torch.Generator().manual_seed(args.seed)
     prompt = (torch.randn((1, ctx_len, ctx_dim), generator=gen) * 0.02).to(device)
     empty = torch.zeros((1, ctx_len, ctx_dim), device=device)
@@ -614,9 +620,8 @@ def _train_latent(args):
     tx = make_optimizer(make_lr_schedule("cosine", args.lr, args.warmup, args.steps), kind="adamw",
                         max_grad_norm=1.0, grad_accum=args.grad_accum)
     if args.mode == "controlnet":
-        unet_kw = cfg["unet"]
-        cn = ControlNet(**{k: unet_kw[k] for k in ("block_out_channels", "heads", "context_dim") if k in unet_kw},
-                        device=device)
+        cn = ControlNet(block_out_channels=unet.block_out_channels, layers_per_block=unet.layers_per_block,
+                        heads=unet.heads, context_dim=unet.context_dim, device=device)
         state = create_train_state(cn, tx, device=device)
         make = lambda: latent.make_controlnet_train_step(  # noqa: E731
             unet, cn, vae, sched, prompt, empty, args.proportion_empty_prompts, device=device)

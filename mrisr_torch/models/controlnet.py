@@ -60,6 +60,7 @@ class ControlNet(nn.Module):
         dev = resolve_device(device)
         super().__init__()
         self.block_out_channels = tuple(block_out_channels)
+        self.layers_per_block, self.heads, self.context_dim = layers_per_block, heads, context_dim
         self.conditioning_scale = conditioning_scale
         ch = list(block_out_channels)
         with dev:

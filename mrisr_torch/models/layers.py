@@ -16,6 +16,7 @@ from torch import nn
 
 from mrisr_torch.ops.attention import cross_attention_2d, spatial_attention
 from mrisr_torch.ops.groupnorm import group_norm_silu
+from mrisr_torch.ops.quant import int8_conv
 
 # torch's nn.GroupNorm default, which the reference ResDiff modules use.
 GN_EPS = 1e-5
@@ -112,15 +113,24 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
-class ConvBlock(nn.Module):
-    """GroupNorm -> swish -> (dropout) -> 3x3 conv; GN+swish runs through the fused kernel."""
+class PlainConvInt8(nn.Conv2d):
+    """A stride-1 ``"SAME"`` conv computed in dynamic int8 (``ops/quant.py::int8_conv``).  Its parameters are
+    ``nn.Conv2d``'s (``weight``, ``bias``), so the exact profile's checkpoint fills it."""
 
-    def __init__(self, in_channels: int, features: int, groups: int = 32, dropout: float = 0.0):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_conv(x, self.weight, self.bias, self.stride)
+
+
+class ConvBlock(nn.Module):
+    """GroupNorm -> swish -> (dropout) -> 3x3 conv; GN+swish runs through the fused kernel.  ``int8=True``
+    runs the conv in dynamic int8 (the int8 serving profile; same parameters)."""
+
+    def __init__(self, in_channels: int, features: int, groups: int = 32, dropout: float = 0.0, int8: bool = False):
         super().__init__()
         self.groups = groups
         self.dropout = dropout
         self.GroupNorm_0 = nn.GroupNorm(groups, in_channels, eps=GN_EPS)
-        self.Conv_0 = nn.Conv2d(in_channels, features, 3, padding=1)
+        self.Conv_0 = (PlainConvInt8 if int8 else nn.Conv2d)(in_channels, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         gn = self.GroupNorm_0
@@ -137,11 +147,12 @@ class ResnetBlock(nn.Module):
     reference does for a model called without a timestep or label.
     """
 
-    def __init__(self, in_channels: int, features: int, groups: int, emb_dim: int, dropout: float = 0.0):
+    def __init__(self, in_channels: int, features: int, groups: int, emb_dim: int, dropout: float = 0.0,
+                 int8: bool = False):
         super().__init__()
-        self.ConvBlock_0 = ConvBlock(in_channels, features, groups)
+        self.ConvBlock_0 = ConvBlock(in_channels, features, groups, int8=int8)
         self.Dense_0 = nn.Linear(emb_dim, features)
-        self.ConvBlock_1 = ConvBlock(features, features, groups, dropout)
+        self.ConvBlock_1 = ConvBlock(features, features, groups, dropout, int8=int8)
         if in_channels != features:
             self.Conv_0 = nn.Conv2d(in_channels, features, 1)
 
@@ -176,10 +187,11 @@ class SelfAttention2D(nn.Module):
 
 class ResnetBlockWithAttn(nn.Module):
     def __init__(
-        self, in_channels: int, features: int, groups: int, emb_dim: int, with_attn: bool, dropout: float = 0.0
+        self, in_channels: int, features: int, groups: int, emb_dim: int, with_attn: bool, dropout: float = 0.0,
+        int8: bool = False,
     ):
         super().__init__()
-        self.ResnetBlock_0 = ResnetBlock(in_channels, features, groups, emb_dim, dropout)
+        self.ResnetBlock_0 = ResnetBlock(in_channels, features, groups, emb_dim, dropout, int8)
         if with_attn:
             self.SelfAttention2D_0 = SelfAttention2D(features, groups)
 

@@ -4,6 +4,10 @@ NCHW throughout.  ``ResDiffUNet`` takes ``x = cat([cnn_sr, x_t])`` on
 channels ``[B, 2, H, W]`` and the continuous noise level ``gamma [B]``, and
 returns eps ``[B, 1, H, W]``.  The space-to-depth execution form of the
 reference is a TPU layout rewrite with the same math and is not ported.
+``conv_int8=True`` is the int8 serving profile: the interior ResnetBlock 3x3
+convs run in dynamic int8 (``ops/quant.py``); ``conv_in``, the final
+ConvBlock, the 1x1 shortcuts and the resample convs stay exact, and the
+parameters are the same, so one checkpoint serves every profile.
 """
 from __future__ import annotations
 
@@ -98,6 +102,7 @@ class ResDiffUNet(nn.Module):
         out_channels: int = 1,
         ca_kv_pool: int = 0,
         ca_kv_pool_min_tokens: int = 4096,
+        conv_int8: bool = False,
         device: str | torch.device = "cuda",
     ):
         dev = resolve_device(device)
@@ -107,6 +112,7 @@ class ResDiffUNet(nn.Module):
         self.res_blocks = res_blocks
         self.ca_kv_pool = ca_kv_pool
         self.ca_kv_pool_min_tokens = ca_kv_pool_min_tokens
+        self.conv_int8 = conv_int8
         self.attn_res = tuple(attn_res)
         inner, groups = inner_channel, norm_groups
         n_levels = len(self.channel_mults)
@@ -121,7 +127,8 @@ class ResDiffUNet(nn.Module):
 
         def add_rba(cin, cout, attn):
             nonlocal rba
-            self.add_module(f"ResnetBlockWithAttn_{rba}", ResnetBlockWithAttn(cin, cout, groups, inner, attn, dropout))
+            self.add_module(f"ResnetBlockWithAttn_{rba}", ResnetBlockWithAttn(cin, cout, groups, inner, attn, dropout,
+                                                                            conv_int8))
             rba += 1
 
         pre, now_res, feat_ch = inner, image_size, [inner]

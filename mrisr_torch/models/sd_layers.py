@@ -153,19 +153,22 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
         ctx = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        b, n, inner = q.shape
-        m = k.shape[1]
-        if m > DENSE_MAX_KEYS:
-            return self.to_out(spatial_attention(q, k, v, self.heads))
+        return self.to_out(attend(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads, self.head_dim))
 
-        def split(t, length):
-            return t.reshape(b, length, self.heads, self.head_dim).transpose(1, 2).reshape(
-                b * self.heads, length, self.head_dim)
 
-        out = dense_attention(split(q, n), split(k, m), split(v, m), 1.0 / math.sqrt(self.head_dim))
-        out = out.reshape(b, self.heads, n, self.head_dim).transpose(1, 2).reshape(b, n, inner)
-        return self.to_out(out)
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """Multi-head attention of projected tokens ``[B, N, heads * head_dim]`` (keys ``[B, M, ...]``): dense up to
+    ``DENSE_MAX_KEYS`` keys, else :func:`spatial_attention`."""
+    b, n, inner = q.shape
+    m = k.shape[1]
+    if m > DENSE_MAX_KEYS:
+        return spatial_attention(q, k, v, heads)
+
+    def split(t, length):
+        return t.reshape(b, length, heads, head_dim).transpose(1, 2).reshape(b * heads, length, head_dim)
+
+    out = dense_attention(split(q, n), split(k, m), split(v, m), 1.0 / math.sqrt(head_dim))
+    return out.reshape(b, heads, n, head_dim).transpose(1, 2).reshape(b, n, inner)
 
 
 class GEGLU(nn.Module):

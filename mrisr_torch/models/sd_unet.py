@@ -176,6 +176,7 @@ class SDUNet(nn.Module):
         dev = resolve_device(device)
         super().__init__()
         self.block_out_channels = tuple(block_out_channels)
+        self.layers_per_block, self.heads, self.context_dim = layers_per_block, heads, context_dim
         ch = list(block_out_channels)
         temb = ch[0] * 4
         with dev:
@@ -220,6 +221,12 @@ class SDUNet(nn.Module):
         h = self.mid_block(h, temb, context)
         if mid_block_additional_residual is not None:
             h = h + mid_block_additional_residual
-        for i in range(n):
+        return self.up_tower(h, skips, temb, context)
+
+    def up_tower(self, h: torch.Tensor, skips: list[torch.Tensor], temb: torch.Tensor,
+                 context: torch.Tensor) -> torch.Tensor:
+        """The decode half: the up blocks (each takes its skips from the end of ``skips``), ``conv_norm_out``
+        with SiLU, ``conv_out``."""
+        for i in range(len(self.block_out_channels)):
             h = getattr(self, f"up_blocks_{i}")(h, skips, temb, context)
         return self.conv_out(gn_silu(h, self.conv_norm_out))

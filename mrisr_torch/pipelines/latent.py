@@ -3,10 +3,9 @@
 Port of ``mrisr_tpu/pipelines/latent.py`` (the reference's PEFT inference
 path): VAE-encode the LR slice (times the scaling factor) as the shifting
 anchor; start at the shifted state ``x_T ~ LR + noise``; each step runs the
-ControlNet (condition embedding computed once a chain) and the UNet, or the
-UNet with the adapter's features (computed once a chain), then the manual
-Res-SRDiff reverse step re-anchored on the LR latents; VAE-decode.  The text
-condition is a fixed prompt embedding.  LoRA weights are merged into the
+ControlNet and the UNet, or the UNet with the adapter's features (computed
+once a chain), then the manual Res-SRDiff reverse step re-anchored on the LR
+latents; VAE-decode.  The text condition is a fixed prompt embedding.  LoRA weights are merged into the
 UNet beforehand (``models/lora.py::merge_lora``).  Public layout is the
 reference's: LR ``[B, H, W, 1]`` in, ``[B, H, W, 3]`` in [-1, 1] out.
 
@@ -17,8 +16,16 @@ posterior noise, the starting noise and the ``[steps, B, 4, h, w]`` step
 noises) are made outside the graph from the caller's generator into static
 buffers, so a graphed and an eager chain from the same generator agree
 bitwise.  ``cuda_graph=False``, and every CPU pipeline, run the chain
-eagerly.  The two encoder towers run one after the other (the reference's
-stacked-weight form, ``models/fused.py``, is not ported).
+eagerly.
+
+ControlNet mode has the reference's two switches.  ``fused_towers`` runs the
+UNet's and the ControlNet's encoder towers as one program over two lanes
+(``models/fused.py``; the stacked weights are made inside the chain, so
+weights copied in place are seen by the next call); ``None``, the default,
+fuses whenever ``check_fusable`` passes, which it does for a ControlNet built
+from the UNet.  ``precompute_cond`` embeds the condition image once a chain
+(``False`` embeds it inside every step); a fused chain always precomputes it.
+Adapter mode is never fused.
 
 Dtypes follow the reference's promotion: the VAE encoder, the condition
 embedding or adapter features and the prompt's projections run in their
@@ -40,6 +47,7 @@ from mrisr_torch.device import resolve_device
 from mrisr_torch.diffusion.schedules import Schedule
 from mrisr_torch.models.adapter import T2IAdapter
 from mrisr_torch.models.controlnet import ControlNet, embed_condition
+from mrisr_torch.models.fused import fused_eps, resolve_fused, stack_tower_params
 from mrisr_torch.models.sd_unet import SDUNet
 from mrisr_torch.models.vae import AutoencoderKL
 from mrisr_torch.pipelines.sampler import res_shift_sample
@@ -89,7 +97,8 @@ class LatentSRPipeline:
     """SDUNet + ControlNet (or T2I-Adapter) + AutoencoderKL + schedule on one device (CUDA by default).
 
     ``adapter`` selects the T2I-Adapter mode; ``controlnet`` is then unused
-    and may be None.
+    and may be None.  ``precompute_cond`` and ``fused_towers`` are the
+    reference's (module docstring).
     """
 
     def __init__(
@@ -99,6 +108,8 @@ class LatentSRPipeline:
         vae: AutoencoderKL,
         sched: Schedule,
         prompt_embeds: torch.Tensor,
+        precompute_cond: bool = True,
+        fused_towers: bool | None = None,
         prediction_type: str = "epsilon",
         adapter: T2IAdapter | None = None,
         device: str | torch.device = "cuda",
@@ -113,6 +124,8 @@ class LatentSRPipeline:
         self.vae = vae.to(self.device).eval()
         self.sched = sched.to(self.device)
         self.prompt_embeds = prompt_embeds.to(self.device)
+        self.precompute_cond = precompute_cond
+        self.fused_towers = False if self.adapter is not None else resolve_fused(fused_towers, unet, controlnet)
         self.prediction_type = prediction_type
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
         self.graphs: dict[tuple, LatentChainGraph] = {}
@@ -149,11 +162,18 @@ class LatentSRPipeline:
 
             def eps_fn(x_t, t):
                 return self.unet(x_t, t, ctx, adapter_features=feats)
-        else:
+        elif self.fused_towers:
             cond_emb = embed_condition(self.controlnet, cond)
+            stacked = stack_tower_params(self.unet, dict(self.unet.named_parameters()),
+                                         dict(self.controlnet.named_parameters()))
 
             def eps_fn(x_t, t):
-                down, mid = self.controlnet(x_t, t, ctx, cond_embedding=cond_emb)
+                return fused_eps(self.unet, self.controlnet, stacked, x_t, t, ctx, cond_emb)
+        else:
+            cond_emb = embed_condition(self.controlnet, cond) if self.precompute_cond else None
+
+            def eps_fn(x_t, t):
+                down, mid = self.controlnet(x_t, t, ctx, cond_image=cond, cond_embedding=cond_emb)
                 return self.unet(x_t, t, ctx, down_block_additional_residuals=down,
                                  mid_block_additional_residual=mid)
 
@@ -178,7 +198,7 @@ class LatentSRPipeline:
         return LatentChainGraph(graph, static_lr, static_noise, out)
 
     def _replay(self, lr: torch.Tensor, noise: ChainNoise, num_steps: int) -> torch.Tensor:
-        key = (tuple(lr.shape), lr.dtype, num_steps, self.mode)
+        key = (tuple(lr.shape), lr.dtype, num_steps, self.mode, self.precompute_cond, self.fused_towers)
         chain = self.graphs.get(key)
         if chain is None:
             chain = self.graphs[key] = self._capture(lr, noise, num_steps)
@@ -211,6 +231,20 @@ class LatentSRPipeline:
         if self.cuda_graph:
             return self._replay(lr, noise, num_steps)
         return self._chain(lr, noise, num_steps)
+
+    def super_resolve_rows(
+        self,
+        lr: torch.Tensor,
+        rows: slice,
+        generator: torch.Generator | None = None,
+        num_steps: int = 20,
+    ) -> torch.Tensor:
+        """Rows ``rows`` of the result for the batch ``lr``, computed on those rows only: the whole batch's
+        draws (:meth:`ChainNoise.draw`) are made from ``generator`` and cut, so a data-parallel rank's share
+        equals the same rows of the whole batch's chain."""
+        n = ChainNoise.draw(self.latent_shape(lr), num_steps, generator, lr.device)
+        return self.super_resolve(lr[rows], num_steps=num_steps,
+                                  noise=ChainNoise(n.vae[rows], n.start[rows], n.steps[:, rows]))
 
     def super_resolve_many(
         self,

@@ -160,6 +160,22 @@ class ResDiffPipeline:
             return self._replay(lr, x_T, num_steps, spacing)
         return self._chain(lr, x_T, num_steps, spacing, generator)
 
+    def super_resolve_rows(
+        self,
+        lr: torch.Tensor,
+        rows: slice,
+        generator: torch.Generator | None = None,
+        num_steps: int = 50,
+        spacing: str = "trailing",
+    ) -> torch.Tensor:
+        """Rows ``rows`` of the result for the batch ``lr``, computed on those rows only: the whole batch's
+        starting noise is drawn from ``generator`` and cut, so a data-parallel rank's share equals the
+        same rows of the whole batch's chain."""
+        if num_steps is None:
+            raise ValueError("the ancestral chain draws every step's noise; serve it on the whole batch")
+        x_T = self._nhwc(self._start(lr, generator, None))
+        return self.super_resolve(lr[rows], x_T=x_T[rows], num_steps=num_steps, spacing=spacing)
+
     def super_resolve_many(
         self,
         lr_stack: torch.Tensor,

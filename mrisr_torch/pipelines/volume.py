@@ -9,8 +9,13 @@ with the source affine.
 
 The batch that starts at slice ``s`` draws its noise from its own generator,
 seeded from ``(seed, s)`` (:func:`batch_generator`), so serial and grouped
-dispatch give the same volume.  Results are copied to the host after each
-call; there is no download thread.
+dispatch give the same volume.  With a ``mesh`` (``parallel/mesh.py``) each
+batch is cut over the mesh's ``"data"`` axis: every rank draws the whole
+batch's noise from that batch's generator and runs the chain on its own rows
+(``pipeline.super_resolve_rows``), the rows are all-gathered, and the volume
+equals the single-device one; rank 0 writes the NIfTI, every rank returns
+it.  Results are copied to the host after each call; there is no download
+thread.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from mrisr_torch.data.nifti import NiftiImage, read_nifti, to_ras, write_nifti
 from mrisr_torch.data.slices import clip_to_unit_interval, pad_or_center_crop, to_minus_one_one
+from mrisr_torch.parallel.mesh import batch_sharding
 
 
 def volume_to_model_slices(
@@ -113,13 +119,17 @@ def super_resolve_volume(
     batch_size: int = 8,
     num_steps: int = 50,
     clip: tuple[float, float] = (0, 1000),
+    mesh=None,
     seed: int = 0,
+    dtype: torch.dtype | None = None,
     chain_group: int = 1,
 ) -> NiftiImage:
     """Super-resolve the volume at ``nifti_path`` slice batch by slice batch.
 
-    The slices reach the pipeline in the dtype of most of its UNet's
-    parameters (bf16 slices for a bf16 pipeline).  ``chain_group=G > 1``
+    The slices reach the pipeline in ``dtype``, by default the dtype of most
+    of its UNet's parameters (bf16 slices for a bf16 pipeline).  ``mesh``
+    cuts each batch over its ``"data"`` axis (module docstring; the batch
+    size must divide by the axis size).  ``chain_group=G > 1``
     sends G batches a call through ``pipeline.super_resolve_group``; the
     last call takes the batches that are left, fewer than G when G does not
     divide their number (each chain's CUDA graph is keyed on one batch's
@@ -127,8 +137,9 @@ def super_resolve_volume(
     """
     img = to_ras(read_nifti(nifti_path))
     vol = img.data
-    dtype = pipeline_dtype(pipeline)
+    dtype = pipeline_dtype(pipeline) if dtype is None else dtype
     device = pipeline.device
+    sharding = None if mesh is None else batch_sharding(mesh)
 
     n = vol.shape[axis]
     shapes: list = [None] * n
@@ -154,7 +165,11 @@ def super_resolve_volume(
         grp = starts[gi : gi + group]
         stack = torch.from_numpy(np.stack([prep_batch(s) for s in grp])).to(device=device, dtype=dtype)
         gens = [batch_generator(device, seed, s) for s in grp]
-        if group > 1:
+        if sharding is not None:
+            rows = sharding.rows(batch_size)
+            sr = torch.stack([sharding.gather(pipeline.super_resolve_rows(lr, rows, g, num_steps))
+                              for lr, g in zip(stack, gens)])
+        elif group > 1:
             sr = pipeline.super_resolve_group(stack, gens, num_steps=num_steps)
         else:
             sr = pipeline.super_resolve(stack[0], gens[0], num_steps=num_steps)[None]
@@ -163,6 +178,6 @@ def super_resolve_volume(
 
     vol = restack_slices(sr_all, shapes, axis)
     result = NiftiImage(data=vol.astype(np.float32), affine=img.affine, header=img.header)
-    if out_path is not None:
+    if out_path is not None and (mesh is None or torch.distributed.get_rank() == 0):
         write_nifti(out_path, result.data, result.affine)
     return result

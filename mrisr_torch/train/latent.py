@@ -6,11 +6,15 @@ from cached moments), diffuses the HR latents toward the LR anchor with the
 res-shift forward process, predicts epsilon (or the sample) and takes the MSE.
 Gradients go to the trained module only; the VAE and the UNet (the base of a
 LoRA) are frozen: the factories set ``requires_grad_(False)`` on them, so a
-backward computes no gradient of their weights.  The ControlNet and the UNet
-run one after the other (the reference's unfused form; its fused towers give
-the same numbers).  CFG dropout swaps a sample's prompt embedding for the
-empty one with probability ``proportion_empty_prompts``; there is none when
-``empty_embeds`` is None.
+backward computes no gradient of their weights.  The ControlNet and the
+ControlNet+LoRA steps run the two encoder towers as one program over two lanes
+(``models/fused.py``) when ``fused`` says so; ``None``, the default, fuses
+whenever the two configurations match, as the reference does.  The stacked
+weights are made inside each step, so the gradient reaches the ControlNet lane
+through them (the frozen UNet lane's weight gradient is computed and dropped).
+CFG dropout swaps a sample's prompt embedding for the empty one with
+probability ``proportion_empty_prompts``; there is none when ``empty_embeds``
+is None.
 
 Every factory returns ``step(state, batch, generator, draws=None) -> (state,
 metrics)`` (the frozen modules are bound at construction, where the reference
@@ -46,7 +50,9 @@ from torch.func import functional_call
 from mrisr_torch.device import resolve_device
 from mrisr_torch.diffusion import res_shift
 from mrisr_torch.diffusion.schedules import Schedule
+from mrisr_torch.models.fused import fused_eps, resolve_fused, stack_tower_params
 from mrisr_torch.models.lora import apply_lora_delta
+from mrisr_torch.parallel.mesh import average_gradients
 from mrisr_torch.train.losses import l2
 from mrisr_torch.train.state import Params, TrainState
 from mrisr_torch.train.steps import GraphedStep, _graphed, _nchw, _value_and_grad, step_generator
@@ -156,8 +162,9 @@ def _context(prompt, empty, b: int, p: float, generator, draws: dict):
 
 def _latent_step(predict: Callable, trained: tuple[nn.Module, ...], frozen: tuple[nn.Module, ...], vae, sched,
                  prompt_embeds, empty_embeds, proportion_empty_prompts: float, prediction_type: str,
-                 latents_cached: bool, cond_pixels: bool, device, cuda_graph: bool):
-    """A latent train step around ``predict(params, inputs, x_t, t, ctx) -> model output`` (NCHW)."""
+                 latents_cached: bool, cond_pixels: bool, device, cuda_graph: bool, mesh=None):
+    """A latent train step around ``predict(params, inputs, x_t, t, ctx) -> model output`` (NCHW); with
+    ``mesh`` the loss and gradients are averaged over its ``"data"`` axis (``parallel/mesh.py``)."""
     if prediction_type not in PREDICTION_TYPES:
         raise ValueError(f"unknown prediction_type {prediction_type!r}")
     dev = resolve_device(device)
@@ -175,7 +182,8 @@ def _latent_step(predict: Callable, trained: tuple[nn.Module, ...], frozen: tupl
         x_t, t, eps = _diffused_batch(sched, hr_lat, lr_lat, generator, draws)
         ctx = _context(prompt, empty, hr_lat.shape[0], proportion_empty_prompts, generator, draws)
         target = hr_lat if prediction_type == "sample" else eps
-        return _value_and_grad(lambda p: l2(predict(p, inputs, x_t, t, ctx), target), params)
+        loss, grads = _value_and_grad(lambda p: l2(predict(p, inputs, x_t, t, ctx), target), params)
+        return (loss, grads) if mesh is None else average_gradients(mesh, loss, grads)
 
     if _graphed(dev, cuda_graph):
         def body(state, inputs, generator, regen):
@@ -238,45 +246,61 @@ def make_vae_train_step(vae: nn.Module, kl_weight: float = 1e-6, device: str | t
 def make_latent_base_train_step(unet, vae, sched: Schedule, prompt_embeds, empty_embeds=None,
                                 proportion_empty_prompts: float = 0.1, prediction_type: str = "epsilon",
                                 latents_cached: bool = False, device: str | torch.device = "cuda",
-                                cuda_graph: bool = True):
+                                cuda_graph: bool = True, mesh=None):
     """Base latent-diffusion training: ``state.params`` are the UNet's."""
     def predict(p, inputs, x_t, t, ctx):
         return functional_call(unet, p, (x_t, t, ctx))
 
     return _latent_step(predict, (unet,), (), vae, sched, prompt_embeds, empty_embeds, proportion_empty_prompts,
-                        prediction_type, latents_cached, False, device, cuda_graph)
+                        prediction_type, latents_cached, False, device, cuda_graph, mesh)
+
+
+def _fused_predict(unet, controlnet, unet_params: Params | None, cn_params: Params, x_t, t, ctx, cond_image):
+    """The fused towers' prediction with the ControlNet's parameters ``cn_params`` (and the UNet's
+    ``unet_params``, its own when None), stacked here, inside the step."""
+    prefix = "controlnet_cond_embedding."
+    emb = functional_call(controlnet.controlnet_cond_embedding,
+                          {k[len(prefix):]: v for k, v in cn_params.items() if k.startswith(prefix)}, (cond_image,))
+    stacked = stack_tower_params(unet, dict(unet.named_parameters()) if unet_params is None else unet_params,
+                                 cn_params)
+    return fused_eps(unet, controlnet, stacked, x_t, t, ctx, emb, unet_params, cn_params)
 
 
 def make_controlnet_train_step(unet, controlnet, vae, sched: Schedule, prompt_embeds, empty_embeds=None,
-                               proportion_empty_prompts: float = 0.1, prediction_type: str = "epsilon",
-                               latents_cached: bool = False, device: str | torch.device = "cuda",
-                               cuda_graph: bool = True):
-    """ControlNet fine-tuning: ``state.params`` are the ControlNet's; the UNet is frozen."""
+                               proportion_empty_prompts: float = 0.1, fused: bool | None = None,
+                               prediction_type: str = "epsilon", latents_cached: bool = False,
+                               device: str | torch.device = "cuda", cuda_graph: bool = True, mesh=None):
+    """ControlNet fine-tuning: ``state.params`` are the ControlNet's; the UNet is frozen.  ``fused``: the
+    two towers as one program (module docstring)."""
+    fused = resolve_fused(fused, unet, controlnet)
+
     def predict(p, inputs, x_t, t, ctx):
+        if fused:
+            return _fused_predict(unet, controlnet, None, p, x_t, t, ctx, _rgb(inputs["lr"]))
         down, mid = functional_call(controlnet, p, (x_t, t, ctx), {"cond_image": _rgb(inputs["lr"])})
         return unet(x_t, t, ctx, down_block_additional_residuals=down, mid_block_additional_residual=mid)
 
     return _latent_step(predict, (controlnet,), (unet,), vae, sched, prompt_embeds, empty_embeds,
-                        proportion_empty_prompts, prediction_type, latents_cached, True, device, cuda_graph)
+                        proportion_empty_prompts, prediction_type, latents_cached, True, device, cuda_graph, mesh)
 
 
 def make_lora_train_step(unet, vae, sched: Schedule, prompt_embeds, lora_alpha: float = 1.0, empty_embeds=None,
                          proportion_empty_prompts: float = 0.1, prediction_type: str = "epsilon",
                          latents_cached: bool = False, device: str | torch.device = "cuda",
-                         cuda_graph: bool = True):
+                         cuda_graph: bool = True, mesh=None):
     """LoRA fine-tuning: ``state.params`` are the factors (``lora_params``); the UNet's own weights are the
     frozen base, merged with the factors functionally each step."""
     def predict(p, inputs, x_t, t, ctx):
         return functional_call(unet, apply_lora_delta(unet, lora_tree(p), lora_alpha), (x_t, t, ctx))
 
     return _latent_step(predict, (), (unet,), vae, sched, prompt_embeds, empty_embeds, proportion_empty_prompts,
-                        prediction_type, latents_cached, False, device, cuda_graph)
+                        prediction_type, latents_cached, False, device, cuda_graph, mesh)
 
 
 def make_adapter_train_step(unet, adapter, vae, sched: Schedule, prompt_embeds, empty_embeds=None,
                             proportion_empty_prompts: float = 0.1, prediction_type: str = "epsilon",
                             latents_cached: bool = False, device: str | torch.device = "cuda",
-                            cuda_graph: bool = True):
+                            cuda_graph: bool = True, mesh=None):
     """T2I-Adapter fine-tuning: ``state.params`` are the adapter's; its features add into the frozen UNet's
     down blocks."""
     def predict(p, inputs, x_t, t, ctx):
@@ -284,23 +308,28 @@ def make_adapter_train_step(unet, adapter, vae, sched: Schedule, prompt_embeds, 
         return unet(x_t, t, ctx, adapter_features=feats)
 
     return _latent_step(predict, (adapter,), (unet,), vae, sched, prompt_embeds, empty_embeds,
-                        proportion_empty_prompts, prediction_type, latents_cached, True, device, cuda_graph)
+                        proportion_empty_prompts, prediction_type, latents_cached, True, device, cuda_graph, mesh)
 
 
 def make_cn_lora_train_step(unet, controlnet, vae, sched: Schedule, prompt_embeds, lora_alpha: float = 1.0,
-                            empty_embeds=None, proportion_empty_prompts: float = 0.1,
+                            empty_embeds=None, proportion_empty_prompts: float = 0.1, fused: bool | None = None,
                             prediction_type: str = "epsilon", latents_cached: bool = False,
-                            device: str | torch.device = "cuda", cuda_graph: bool = True):
+                            device: str | torch.device = "cuda", cuda_graph: bool = True, mesh=None):
     """ControlNet and LoRA trained jointly (the reference notebook's configuration): ``state.params`` are
-    ``cn_lora_params``; the UNet is the frozen base of the LoRA."""
+    ``cn_lora_params``; the UNet is the frozen base of the LoRA.  ``fused``: the two towers as one program
+    over the LoRA-merged UNet's weights (module docstring)."""
+    fused = resolve_fused(fused, unet, controlnet)
+
     def predict(p, inputs, x_t, t, ctx):
         merged = apply_lora_delta(unet, lora_tree(p, "lora/"), lora_alpha)
+        if fused:
+            return _fused_predict(unet, controlnet, merged, _prefixed(p, "cn/"), x_t, t, ctx, _rgb(inputs["lr"]))
         down, mid = functional_call(controlnet, _prefixed(p, "cn/"), (x_t, t, ctx), {"cond_image": _rgb(inputs["lr"])})
         return functional_call(unet, merged, (x_t, t, ctx), {"down_block_additional_residuals": down,
                                                              "mid_block_additional_residual": mid})
 
     return _latent_step(predict, (controlnet,), (unet,), vae, sched, prompt_embeds, empty_embeds,
-                        proportion_empty_prompts, prediction_type, latents_cached, True, device, cuda_graph)
+                        proportion_empty_prompts, prediction_type, latents_cached, True, device, cuda_graph, mesh)
 
 
 # ---------------------------------------------------------------------------

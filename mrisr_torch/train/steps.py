@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from mrisr_torch.device import resolve_device
 from mrisr_torch.diffusion import ddpm, sr3
 from mrisr_torch.diffusion.schedules import Schedule
+from mrisr_torch.parallel.mesh import average_gradients
 from mrisr_torch.train.losses import image_compare_loss, l2
 from mrisr_torch.train.precision import Policy
 from mrisr_torch.train.state import Params, TrainState
@@ -207,6 +208,7 @@ def make_resdiff_train_step(
     remat: bool = False,
     device: str | torch.device = "cuda",
     cuda_graph: bool = True,
+    mesh=None,
 ):
     """Stage 2: diffuse the residual ``hr - sr``, predict eps, MSE.
 
@@ -218,7 +220,9 @@ def make_resdiff_train_step(
     puts the generator back to its state from before the forward, and a graphed
     step recomputes from a second registered generator set to that state (its
     Philox offset measured in the warm-up), since a generator's state cannot be
-    set inside a capture.
+    set inside a capture.  With ``mesh`` (``parallel/mesh.py``) each rank
+    steps on its rows of the batch and the loss and gradients are averaged
+    over the mesh's ``"data"`` axis before the update (in the graph too).
     """
     policy = policy or Policy()
     dev = _prepare(unet, device)
@@ -261,7 +265,8 @@ def make_resdiff_train_step(
             eps_pred = apply_unet(policy.cast_to_compute(params), inp, gamma, generator, regen)
             return l2(eps_pred.float(), eps.float())
 
-        return _value_and_grad(loss_fn, params)
+        loss, grads = _value_and_grad(loss_fn, params)
+        return (loss, grads) if mesh is None else average_gradients(mesh, loss, grads)
 
     if _graphed(dev, cuda_graph):
         def body(state, inputs, generator, regen):

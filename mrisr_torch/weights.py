@@ -11,6 +11,12 @@ The port names its submodules after the Flax auto-names (``conv_in``,
 * a parameter of the module itself (CLIP's ``position_embedding``) keeps its
   name and layout.
 
+A module made of such modules walks the same way: SDXL's
+``CLIPTextEncoderWithProjection`` takes the ``text_model`` and
+``text_projection`` subtrees that ``convert-weights --model clip-proj``
+writes, and the fused-tower and int8 forms use the UNet, ControlNet and
+ResDiff trees unchanged.
+
 Every leaf is used once; a leaf with no parameter, or a parameter with no
 leaf, raises.  The tree holds numpy arrays; ``load_flax_checkpoint`` reads
 one from a Flax ``.msgpack`` checkpoint with the port's own reader
@@ -80,6 +86,21 @@ def flax_named(module: nn.Module, tree: Mapping) -> dict[str, np.ndarray]:
     if missing:
         raise KeyError(f"parameters with no Flax leaf: {missing}")
     return out
+
+
+def sd_unet_shape(tree: Mapping) -> dict:
+    """``block_out_channels`` and ``layers_per_block`` of the SDUNet whose Flax tree ``tree`` is: one level a
+    ``down_blocks_i``, its width the output channels of its first ResnetBlock2D's ``conv1``, and as many
+    ResnetBlock2Ds a level as ``down_blocks_0`` holds ``resnets_j``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    levels = sum(k.startswith("down_blocks_") for k in tree)
+    if not levels:
+        raise KeyError("not an SDUNet tree: no down_blocks_*")
+    channels = tuple(int(np.shape(tree[f"down_blocks_{i}"]["resnets_0"]["conv1"]["kernel"])[-1])
+                     for i in range(levels))
+    return {"block_out_channels": channels,
+            "layers_per_block": sum(k.startswith("resnets_") for k in tree["down_blocks_0"])}
 
 
 def load_flax_params(module: nn.Module, tree: Mapping) -> None:

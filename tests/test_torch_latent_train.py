@@ -205,7 +205,7 @@ def _steps(towers, mode):
         return (jstep, params["unet"], tstep, create_train_state(port["unet"], T_RECORD, device="cpu"),
                 lambda tree: _port_names(t_unet.SDUNet, tree, **net))
     if mode == "controlnet":
-        jstep = j_latent.make_controlnet_train_step(j["unet"], j["cn"], j["vae"], jsched, jp, je, CFG_P, fused=False)
+        jstep = j_latent.make_controlnet_train_step(j["unet"], j["cn"], j["vae"], jsched, jp, je, CFG_P, fused=True)
         tstep = t_latent.make_controlnet_train_step(port["unet"], port["cn"], port["vae"], tsched, tp, **common)
         return jstep, params["cn"], tstep, create_train_state(port["cn"], T_RECORD, device="cpu"), cn_names
     if mode == "lora":
@@ -219,7 +219,7 @@ def _steps(towers, mode):
         return (jstep, params["adapter"], tstep, create_train_state(port["adapter"], T_RECORD, device="cpu"),
                 lambda tree: _port_names(t_adapter.T2IAdapter, tree, channels=net["block_out_channels"]))
     jstep = j_latent.make_cn_lora_train_step(j["unet"], j["cn"], j["vae"], jsched, jp, params["unet"], LORA_ALPHA, je,
-                                             CFG_P, fused=False)
+                                             CFG_P, fused=True)
     tstep = t_latent.make_cn_lora_train_step(port["unet"], port["cn"], port["vae"], tsched, tp, LORA_ALPHA, **common)
     state = create_train_state(t_latent.cn_lora_params(port["cn"], lora_t), T_RECORD, device="cpu")
     names = lambda tree: {**{f"cn/{k}": v for k, v in cn_names(tree["cn"]).items()},  # noqa: E731
@@ -247,7 +247,8 @@ def _step_matches_jax(towers, mode) -> dict:
 @pytest.mark.parametrize("mode", MODES)
 def test_latent_step_matches_jax(mode, towers):
     """One step of each latent factory (the base UNet with ``prediction_type="sample"``), CFG dropout at p=0.5
-    with a key whose mask drops one of the two samples; the ControlNet towers unfused in both."""
+    with a key whose mask drops one of the two samples; the ControlNet towers fused in both (each package's
+    default form)."""
     _step_matches_jax(towers, mode)
 
 
@@ -390,7 +391,9 @@ def test_train_latent_reads_converted_weights(towers, tmp_path):
 def test_chip_smoke_counts_the_latent_training_launches(monkeypatch):
     """``chip_smoke.py::latent_train_expect`` (the launches the card's graphs are held to) is what a step
     calls: each B1, B2 (dQ and dK/dV) and B3 call of an eager CPU step is counted, with the dense-attention
-    limit lowered so that the tiny towers' level-0 self-attentions (64 keys) take the flash route."""
+    limit lowered so that the tiny towers' level-0 self-attentions (64 keys) take the flash route; with the
+    towers one after the other and fused (the default, whose down-tower sites take both lanes)."""
+    from mrisr_torch.models import fused as fused_towers
     from mrisr_torch.models import sd_layers
     from mrisr_torch.ops import attention
     from mrisr_torch.ops import flash_attention as fa
@@ -413,17 +416,20 @@ def test_chip_smoke_counts_the_latent_training_launches(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_bwd", counted(fa.flash_attention_bwd, "flash_attention_bwd_dq",
                                                            "flash_attention_bwd_dkv"))
     monkeypatch.setattr(sd_layers, "group_norm_silu", counted(sd_layers.group_norm_silu, "group_norm_silu"))
+    monkeypatch.setattr(fused_towers, "group_norm_silu", counted(fused_towers.group_norm_silu, "group_norm_silu"))
     torch.manual_seed(0)
     cfg = t_cli.LATENT_TINY
     unet, cn = t_unet.SDUNet(**cfg["unet"], device="cpu"), t_cn.ControlNet(**cfg["unet"], device="cpu")
     vae = t_vae.AutoencoderKL(**cfg["vae"], device="cpu")
     prompt = torch.randn((1, *cfg["context"]))
     for mode, cached in (("cn_lora", False), ("controlnet", True)):
-        expect = smoke.latent_train_expect(unet, cn, vae, mode, 64, cached)
-        data = smoke.latent_train_batch(torch, 1, 64, 1, vae if cached else None, device="cpu")
-        state, step = smoke.latent_train_step(torch, unet, cn, vae, mode, cached, prompt, torch.zeros_like(prompt),
-                                              device="cpu", cuda_graph=False)
-        calls.update(dict.fromkeys(calls, 0))
-        step(state, data, step_generator(2, 0, "cpu"))
-        assert calls == expect and expect["flash_attention_fwd"] == 7, (mode, calls, expect)
-        assert expect["flash_attention_bwd_dq"] == (7 if mode == "cn_lora" else 5)
+        for fused in (False, True):
+            expect = smoke.latent_train_expect(unet, cn, vae, mode, 64, cached, fused)
+            data = smoke.latent_train_batch(torch, 1, 64, 1, vae if cached else None, device="cpu")
+            state, step = smoke.latent_train_step(torch, unet, cn, vae, mode, cached, prompt,
+                                                  torch.zeros_like(prompt), device="cpu", cuda_graph=False,
+                                                  fused=fused)
+            calls.update(dict.fromkeys(calls, 0))
+            step(state, data, step_generator(2, 0, "cpu"))
+            assert calls == expect and expect["flash_attention_fwd"] == (5 if fused else 7), (mode, calls, expect)
+            assert expect["flash_attention_bwd_dq"] == (5 if fused else 7 if mode == "cn_lora" else 5)

@@ -19,7 +19,7 @@ from mrisr_torch.data import safetensors_io as t_st
 from mrisr_torch.models import convert as t_convert
 from mrisr_torch.models import sd_unet as t_unet
 from mrisr_torch.models import vae as t_vae
-from mrisr_torch.weights import flax_params, load_flax_params, load_params_npz
+from mrisr_torch.weights import flax_params, load_flax_params, load_params_npz, sd_unet_shape
 from test_torch_cli import _assert_trees_equal, _ckpt
 from test_torch_latent_parts import _convert_case
 from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
@@ -210,6 +210,29 @@ def test_train_latent_reads_the_ports_converted_weights(tmp_path):
         loaded = dict(res[key].named_parameters())
         for name, p in module.named_parameters():
             assert torch.equal(loaded[name], p), f"{key}.{name}"
+
+
+def test_train_latent_takes_the_unet_shape_of_its_npz(tmp_path):
+    """A UNet cut to three levels and one ResnetBlock2D a down block, through ``convert-weights``:
+    ``train-latent --tiny --weights-dir`` builds its UNet at that depth and width (``sd_unet_shape``), loads
+    it bitwise and trains a ControlNet of the same shape."""
+    torch.manual_seed(4)
+    cut = dict(block_out_channels=(8, 16, 16), layers_per_block=1)
+    unet = t_unet.SDUNet(**cut, heads=2, context_dim=16, device="cpu")
+    weights = tmp_path / "w"
+    weights.mkdir()
+    t_st.save_safetensors(tmp_path / "unet.safetensors", t_convert.export_diffusers_tree(unet))
+    t_cli.run(["convert-weights", "--model", "unet", "--input", str(tmp_path / "unet.safetensors"),
+               "--output", str(weights / "unet.npz")])
+    assert sd_unet_shape(load_params_npz(weights / "unet.npz")) == cut
+    res = t_cli.run(["train-latent", "--cpu", "--tiny", "--resolution", "64", "--batch", "1", "--steps", "1",
+                     "--weights-dir", str(weights), "--out", str(tmp_path / "run")])
+    loaded = res["unet"]
+    assert (loaded.block_out_channels, loaded.layers_per_block) == (cut["block_out_channels"], 1)
+    mine = dict(unet.named_parameters())
+    assert all(torch.equal(p, mine[k]) for k, p in loaded.named_parameters())
+    assert any(k.startswith("down_blocks_2.") for k in res["state"].params)
+    assert not any(k.startswith(("down_blocks_3.", "down_blocks_0.resnets_1.")) for k in res["state"].params)
 
 
 TINY = ["--cpu", "--tiny", "--resolution", "64", "--batch", "2", "--steps", "2"]
