@@ -13,11 +13,14 @@ result.  Each phase prints JSON lines:
    spills, and no serialized wgmma pipeline -- ptxas's "Performance Loss"
    notes -- in any CUDA library), and the HGMMA (wgmma) instruction count
    of each flash kernel, bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
-   D = 32, 64, 128, from ``cuobjdump -sass`` (none of the 18 may be 0);
+   D = 32, 64, 128, and the fp32 forward and dK/dV at D = 40, from
+   ``cuobjdump -sass`` (none of the 20 may be 0);
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and fp32 (plus ragged shapes, ragged
-   shapes where every score is below -100, and head widths the kernels pad:
-   D = 16 and 40), with its time beside its bound, the plain version's time
+   shapes where every score is below -100, each also at D = 40, and head
+   widths the kernels pad: D = 16, 36 and, in bf16 and for fp32 dQ, 40; there
+   fp32 dQ bitwise equal to the dQ of the padded inputs), with its time
+   beside its bound, the plain version's time
    and one PyTorch library call's time (timed only; the port never calls
    it); the kernel's own device time (``torch.profiler``) and the wrapper's
    host microseconds per call; for fp32 a tensor-core (3xTF32) bound beside
@@ -62,10 +65,11 @@ result.  Each phase prints JSON lines:
    evaluation at 576^2, bs 1, against the CPU's plain path (rms error within
    1e-4 of rms(ref)); B3 at every head shape of the 512^2 chain (collected
    from the modules while the eager chain runs) and B1 at the SD route as the
-   fused 1024^2 chain launches it (32 x 16384^2, D=40 padded to 64), both
-   dtypes, against their plain versions, timed beside their bounds and one
-   library call (the kernel phase adds B2a and B2b there, fp32, 16 x 16384^2:
-   the fused training step's);
+   fused 1024^2 chain launches it (32 x 16384^2, D=40, padded to 64 in bf16),
+   both dtypes, and at its up-tower sites (16 x 16384^2, fp32), against their
+   plain versions, timed beside their bounds and one library call (the kernel
+   phase adds B2a and B2b there, fp32, 16 and 8 x 16384^2: the fused training
+   step's);
 9. ``latent_train``: the latent family's training steps
    (``mrisr_torch/train/latent.py``) at SD1.5's widths, fp32 weights and
    states: ControlNet+LoRA at 256^2, bs 2, from pixels, graphed against eager
@@ -200,12 +204,16 @@ FLASH_CASES = [  # (case, B, N, M, D): the chain's two flash sites, both profile
 ]
 FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ragged", 3, 130, 70, 128),
                 # fewer queries than one CTA and keys than one tile; keys ending mid-tile at B >= 2, D=64
-                ("ragged", 2, 37, 5, 32), ("ragged", 2, 300, 1000, 64)]
+                ("ragged", 2, 37, 5, 32), ("ragged", 2, 300, 1000, 64),
+                # SD1.5's 40-wide heads (fp32 B1 and B2b take them unpadded, with a tail box a row): N not a
+                # multiple of 128, M not one of 64, and M below one tile
+                ("ragged", 3, 130, 70, 40), ("ragged", 2, 37, 5, 40)]
 # Ragged shapes where every score is below -100 (extreme_qk): a zero key past
 # M would score 0 and get p = exp(-lse), which overflows.
-FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32)]
-# Head widths the kernels do not have: the wrappers pad D to 32 and 64.
-FLASH_PAD = [("pad", 2, 4096, 4096, 16), ("pad", 2, 1000, 777, 40)]
+FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32), ("extreme", 2, 300, 1000, 40)]
+# Head widths the kernels do not have: the wrappers pad D to 32, and 36 to 40 (fp32) or 64 (bf16); bf16 pads
+# 40 to 64, and so does fp32 dQ (its parts).
+FLASH_PAD = [("pad", 2, 4096, 4096, 16), ("pad", 2, 1000, 777, 40), ("pad", 2, 1000, 777, 36)]
 EXTREME_MEAN_SCORE, EXTREME_NOISE = -130.0, 2.0
 # (case, shape, groups): the 13 shapes of the UNet's 29 ConvBlock heads at bs 8
 # (C @ H^2: 32, 64, 96 @ 256^2; 32, 64, 96, 192 @ 128^2; 64, 128, 192, 256
@@ -425,8 +433,8 @@ def phase_build(torch):
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
     # Every flash kernel -- bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
-    # D = 32, 64, 128 -- is built on wgmma: the SASS of each must hold HGMMA
-    # instructions.
+    # D = 32, 64, 128, and the fp32 forward and dK/dV at D = 40 -- is built on
+    # wgmma: the SASS of each of the 20 must hold HGMMA instructions.
     hgmma = {k: n for lib in flash_attention.LIBRARIES
              for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items()
              if k.startswith(("flash_fwd_", "flash_bwd_"))}
@@ -434,7 +442,7 @@ def phase_build(torch):
           "kernels_with_spills": spills, "flash_hgmma": hgmma, "ptxas": ptxas})
     # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
     serialized = [ln for lines in ptxas.values() for ln in lines if "Performance Loss" in ln]
-    if len(hgmma) != 18 or not all(hgmma.values()) or any(spills.values()) or serialized:
+    if len(hgmma) != 20 or not all(hgmma.values()) or any(spills.values()) or serialized:
         raise AssertionError(f"build: HGMMA counts {hgmma}, kernels with spills {spills}, "
                              f"ptxas performance notes {serialized}")
 
@@ -484,7 +492,7 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
         # fp32 makes its operands first (some 20 launches a call), and a padded head adds its copies: few
         # calls, so the launch queue never fills and the enqueue is not held back by the device.
         rec["host_us"] = host_us(torch, lambda: fa.flash_attention_fwd(q, k, v, scale),
-                                 iters=200 if dtype == torch.bfloat16 and d == fa.kernel_head_dim(d) else 20)
+                                 iters=200 if dtype == torch.bfloat16 and d == fa.kernel_head_dim(d, dtype) else 20)
         rec["plain_ms"] = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, scale), max_iters=10)
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]  # [B, 1 head, N, D]: fused backends take 4-D
         run_library = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
@@ -510,11 +518,19 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     # No atomics: each block writes only the rows it owns, so a second call gives the same bits.
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    # A head B2b takes but B2a does not (fp32 D=40): B2a reads its parts zero-padded to its width, which must
+    # give the dQ of the zero-padded inputs (their own parts) bit for bit.
+    dq_d, dkv_d = fa.kernel_head_dim(d, dtype, "dq"), fa.kernel_head_dim(d, dtype, "dkv")
+    padded_dq = None
+    if dq_d != dkv_d:
+        padded = [fa._pad_head_dim(t, dq_d) for t in (q, k, v, do)]
+        padded_dq = torch.equal(fa.flash_attention_bwd_dq(*padded, lse, delta, scale)[..., :d], got[0])
     torch.cuda.synchronize()
     deterministic = all(torch.equal(a, b_) for a, b_ in zip(got, again))
     name = str(dtype).split(".")[-1]
     tol = FLASH_BWD_TOL[name]
-    errs, ok = {}, deterministic
+    errs, ok = {}, deterministic and padded_dq is not False
     for key, g, w in zip(("dq", "dk", "dv"), got, want):
         ref = w.float()
         rms_ref = float(ref.square().mean().sqrt())
@@ -525,7 +541,9 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
         ok = (ok and bool(torch.isfinite(g).all()) and errs[key]["err_over_limit"] <= 1.0
               and errs[key]["rms_err_rel"] <= tol["rms_rel"])
     base = {"phase": "kernel", "case": case, "dtype": name, "shape": [b, n, m, d], "tolerance": tol,
-            "deterministic": deterministic, "ok": ok}
+            "deterministic": deterministic, "kernel_d": {"dq": dq_d, "dkv": dkv_d}, "ok": ok}
+    if padded_dq is not None:
+        base["dq_equals_padded_route"] = padded_dq
     recs = {"flash_attention_bwd_dq": {**base, "kernel": "flash_attention_bwd_dq", "errors": {"dq": errs["dq"]},
                                        "max_abs_err": errs["dq"]["max_abs_err"]},
             "flash_attention_bwd_dkv": {**base, "kernel": "flash_attention_bwd_dkv",
@@ -534,16 +552,22 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
     if timed:
         size = q.element_size()
         bf16 = dtype == torch.bfloat16
-        delta = (do.float() * o.float()).sum(dim=-1)
         dq_rec, dkv_rec = recs["flash_attention_bwd_dq"], recs["flash_attention_bwd_dkv"]
         # Each input read once, each output written once; three products for dQ, four for dK/dV.
         set_bounds(dq_rec, (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, bf16)
         set_bounds(dkv_rec, (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, bf16)
-        # The kernels alone, on heads zero-padded to the kernels' width as the pair pads them (D=40 -> 64);
-        # fp32 on 3xTF32 operands made once (the pair makes its own).  The bounds count the unpadded work.
-        qp, kp, vp, dop = (fa._pad_head_dim(t, fa.kernel_head_dim(d)) for t in (q, k, v, do))
+        # The kernels alone, on heads zero-padded to the kernels' width as the pair pads them (bf16 D=40 -> 64;
+        # fp32 dQ's parts 40 -> 64); fp32 on 3xTF32 operands made once (the pair makes its own).  The bounds
+        # count the unpadded work.
+        qp, kp, vp, dop = (fa._pad_head_dim(t, dkv_d) for t in (q, k, v, do))
         parts = None if bf16 else fa.tf32_parts(qp, kp, vp, dop)
-        run_dq = lambda: fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta, scale, parts)  # noqa: E731
+
+        def prep():  # the pair's 3xTF32 operands: every part, and dQ's padded where its kernel is wider
+            made = fa.tf32_parts(qp, kp, vp, dop)
+            return made if dq_d == dkv_d else (made, fa.pad_dq_parts(made, dq_d))
+
+        dq_parts = parts if bf16 or dq_d == dkv_d else fa.pad_dq_parts(parts, dq_d)
+        run_dq = lambda: fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta, scale, dq_parts)  # noqa: E731
         run_dkv = lambda: fa.flash_attention_bwd_dkv(qp, kp, vp, dop, lse, delta, scale, parts)  # noqa: E731
         for rec, run, kernel_part in ((dq_rec, run_dq, "flash_bwd_dq"), (dkv_rec, run_dkv, "flash_bwd_dkv")):
             rec["ms"] = cuda_ms(torch, run)
@@ -562,7 +586,7 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
                 "plain_ms": plain_ms, "library_ms": cuda_ms(torch, run_library, max_iters=10),
                 "library_device_ms": device_ms(torch, run_library, None, iters=10)}
         if not bf16:  # the 3xTF32 operands' device time, part of the pair's
-            pair["prep_device_ms"] = device_ms(torch, lambda: fa.tf32_parts(qp, kp, vp, dop), None)
+            pair["prep_device_ms"] = device_ms(torch, prep, None)
         for rec in (dq_rec, dkv_rec):
             rec.update(exp_floor_ms=b * n * m / PEAK_EXPS * 1e3, **pair,
                        plain_and_library_cover="dq, dk and dv together")
@@ -743,9 +767,11 @@ def phase_kernels(torch):
             raise AssertionError(f"the chain's B3 heads {dict(head_calls)} are not GN_CASES' 13 ({calls} launches)")
         for case in GN_RAGGED:
             recs["group_norm_silu"].append(check_gn(torch, F, dtype, *case, timed=False))
-    # The backward on the SD route (the latent training step at 1024^2), fp32 as the step runs it.
-    for name, rec in check_flash_bwd(torch, F, torch.float32, *FLASH_SD_BWD, timed=True).items():
-        recs[name].append(rec)
+    # The backward on the SD route (the latent training step at 1024^2), fp32 as the step runs it: the fused
+    # down-tower sites and the up-tower ones.
+    for case in (FLASH_SD_BWD, FLASH_SD_BWD_UP):
+        for name, rec in check_flash_bwd(torch, F, torch.float32, *case, timed=True).items():
+            recs[name].append(rec)
     check_flash_autograd(torch)
     check_captured(torch)
     return recs
@@ -761,7 +787,9 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
     do not overlap).  Its idle share is taken against ``chain_ms``, the same
     run timed without the profiler, and against the profiled run's own wall
     time.  ``kernel_events`` counts the device events whose name holds each
-    kernel's part (``KERNEL_PARTS``).  The tracer's own records are read
+    kernel's part (``KERNEL_PARTS``); ``flash_kernels`` gives each flash
+    kernel's device ms and count by its name and head width
+    (``flash_fwd_f32_kernel<40>``).  The tracer's own records are read
     (``kineto_results.events()``), not ``key_averages()``: its Python event
     tree takes more than ten times as long to build.
     """
@@ -802,7 +830,23 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
                  "profiled_chain_ms": profiled_ms, "profiled_idle_share": 1.0 - busy_ms / profiled_ms,
                  "device_events": sum(r[2] for r in rows), "graph_launches": graph_launches,
                  "kernel_events": {name: sum(n for k, _, n in rows if part in k) for name, part in KERNEL_PARTS.items()},
+                 "flash_kernels": flash_kernels(rows),
                  "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]}
+
+
+def flash_kernels(rows):
+    """``{"flash_fwd_f32_kernel<40>": {"ms": ..., "count": ...}, ...}`` from a trace's ``(name, ms, count)``
+    rows (demangled names: ``void (anonymous namespace)::flash_fwd_f32_kernel<40>(...)``)."""
+    import re
+
+    out = {}
+    for k, ms, n in rows:
+        m = re.search(r"(flash_(?:fwd|bwd)_\w*?kernel<\d+>)", k)
+        if m:
+            row = out.setdefault(m.group(1), {"ms": 0.0, "count": 0})
+            row["ms"] += ms
+            row["count"] += n
+    return out
 
 
 # The parts of the kernels' names in a trace, by launch counter.
@@ -1669,11 +1713,16 @@ LATENT_STATED = {("controlnet", 512, True): (950, 0), ("controlnet", 1024, True)
 # 79.7 and 99.5 s on two H100 hosts, and the run would not keep inside its 1200 s on the slower; 10.7 s here.
 LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 576, 1e-4
 # B1 at the SD route as the fused 1024^2 chain at bs 2 launches it: 2 lanes x 2 images x 8 heads at 128^2
-# latents, D = 40 (the wrapper pads it to 64).  (Before the fused towers: 64 = 8 images x 8 heads.)
+# latents, D = 40 (fp32 takes it as it is, bf16 pads it to 64), at its 40 down-tower launches; its 60
+# up-tower launches (the UNet alone: 2 images x 8 heads) are ``FLASH_SD_UP``, timed in fp32, as the chain
+# runs.  (Before the fused towers: 64 = 8 images x 8 heads.)
 FLASH_SD = ("sd_fused", 32, 16384, 16384, 40)
-# B2a/B2b at the SD route, as the fused 1024^2 training step at bs 1 runs them: 2 lanes x 8 heads, fp32.
-# (Before the fused towers: one image's 8 heads.)
+FLASH_SD_UP = ("sd_up", 16, 16384, 16384, 40)
+# B2a/B2b at the SD route, as the fused 1024^2 training step at bs 1 runs them: 2 lanes x 8 heads, fp32 (B2b
+# at D = 40, B2a on its parts padded to 64), at its 2 down-tower sites; ``FLASH_SD_BWD_UP`` at its 3 up-tower
+# ones (one image's 8 heads).  (Before the fused towers: one image's 8 heads.)
 FLASH_SD_BWD = ("sd_fused", 16, 16384, 16384, 40)
+FLASH_SD_BWD_UP = ("sd_up", 8, 16384, 16384, 40)
 
 
 def latent_modules(torch, dtype, seed=10):
@@ -1964,6 +2013,7 @@ def phase_latent(torch):
         emit({"phase": "latent_head_totals", "dtype": str(dtype).split(".")[-1], "heads": len(heads),
               "calls_a_chain": sum(heads.values()), **{f"{k}_a_chain": v for k, v in chain.items()}})
         check_flash(torch, F, dtype, *FLASH_SD, timed=True)
+    check_flash(torch, F, torch.float32, *FLASH_SD_UP, timed=True)
     return totals
 
 

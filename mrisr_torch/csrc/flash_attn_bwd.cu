@@ -144,6 +144,20 @@
 //     product and 1.75 ms with one tf32 pass; without exponentials it is
 //     within noise.  The second-stage products (m64nDk8 with D = 32, three
 //     passes a k-step) set the time, not the exp unit.
+//   * dK/dV at D=40: SD1.5's heads (the latent training step's self-attention
+//     at 128^2 latents).  Bound at the fused 1024^2 step's 16x16384^2x40: 8 B
+//     N M D = 1.37 TFLOP -> 8.33 ms 3xTF32 (8x: 4.16).  No pad to 64: the
+//     D-wide tiles (K, V owned; Q, dO walked) are a 128-byte box and a 32-byte
+//     tail box a row, as in the forward, so S^T and dP^T take 5 k-steps; dV
+//     and dK run at wgmma N = 40 over Q^T / dO^T tiles of 40 rows of 32
+//     queries (D=32's layout).  D=32's shape: two consumers of 64 K/V rows
+//     taking turns, BQ = 32, 3 stages (the owned parts take 80 KB, a stage
+//     40 KB; four do not fit).  Sweep at 16 / 8 x 16384^2 x 40: 2 stages 57-61
+//     % slower, one consumer (4 stages) 16-24 %, no turns 6-8 %; BQ = 16 would
+//     put the 2560-byte D-wide tiles off their 1024-byte alignment.  One tf32
+//     pass takes 9.0 ms of 14.2-14.7 and no dV, dK products 7.8: those two
+//     products at N = 40 are about half the time.  dQ keeps D=64: the wrapper
+//     pads the parts it reads (flash_attention.py::pad_dq_parts).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -627,7 +641,7 @@ struct DqF32Tiles {
 // Tile table of the fp32 dK/dV kernel (B2b), per head dimension D.
 template <int D>
 struct DkvF32Tiles {
-  using Rows = SwizzledRows<D, 4>;  // K, V, Q, dO tiles: D columns
+  using Rows = SwizzledRows<D, 4>;  // K, V, Q, dO tiles: D columns (at D=40 a 128-byte box and a 32-byte tail)
   static constexpr int kConsumers = 2;
   // At D=128 the owned tiles leave room for 64 K/V rows only, and dK, dV and
   // their per-tile parts need more registers than a thread has: both
@@ -639,11 +653,13 @@ struct DkvF32Tiles {
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = 240;
-  static constexpr int kQueries = D == 32 ? 32 : 16;  // BQ: queries per Q/dO tile
+  // D=40 has D=32's shape: the owned parts of 128 rows take 80 KB, a stage of
+  // 32 queries 40 KB, so three stages fit.
+  static constexpr int kQueries = D <= 40 ? 32 : 16;  // BQ: queries per Q/dO tile
   using RowsT = SwizzledRows<kQueries, 4>;  // Q^T, dO^T tiles: BQ columns
   // At D=128 one stage is all that fits: the consumers then run each tile's
   // products one after the other (no overlap within a warpgroup).
-  static constexpr int kStages = D == 32 ? 4 : (D == 64 ? 3 : 1);
+  static constexpr int kStages = D == 32 ? 4 : (D <= 64 ? 3 : 1);
   static constexpr bool kPingPong = kConsumers == 2;
   static constexpr int kKVBytes = kRowsKV * D * 4;    // each of K, K lo, V, V lo
   static constexpr int kTileBytes = kQueries * D * 4;  // each of the eight tiles of a stage
@@ -655,9 +671,11 @@ struct DkvF32Tiles {
   static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
 
-// The tensor maps of an fp32 kernel: the parts it reads.
+// The tensor maps of an fp32 kernel: the parts it reads, and at D=40 the tail
+// boxes of the D-wide ones (SwizzledRows).
 struct F32Maps {
   CUtensorMap q, q_lo, dout, do_lo, k, k_lo, v, v_lo, qt, qt_lo, dot, dot_lo, kt, kt_lo;
+  CUtensorMap q_tail, q_lo_tail, dout_tail, do_lo_tail, k_tail, k_lo_tail, v_tail, v_lo_tail;
 };
 
 template <int D>
@@ -699,24 +717,24 @@ __global__ void __launch_bounds__(DqF32Tiles<D>::kThreads, 1)
     if constexpr (T::kConsumers > 1) setmaxnreg_dec<T::kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(q_full, 4 * T::kQBytes);
-      R::load(q_s, &m.q, q_full, 0, q0, T::kRowsQ, b);
-      R::load(qlo_s, &m.q_lo, q_full, 0, q0, T::kRowsQ, b);
-      R::load(do_s, &m.dout, q_full, 0, q0, T::kRowsQ, b);
-      R::load(dolo_s, &m.do_lo, q_full, 0, q0, T::kRowsQ, b);
+      R::load(q_s, &m.q, q_full, 0, q0, T::kRowsQ, b, &m.q_tail);
+      R::load(qlo_s, &m.q_lo, q_full, 0, q0, T::kRowsQ, b, &m.q_lo_tail);
+      R::load(do_s, &m.dout, q_full, 0, q0, T::kRowsQ, b, &m.dout_tail);
+      R::load(dolo_s, &m.do_lo, q_full, 0, q0, T::kRowsQ, b, &m.do_lo_tail);
       int st = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
         const uint32_t k = k_at(st), v = v_at(st);
         mbar_wait(ring.k_empty(st), phase ^ 1);
         mbar_arrive_expect_tx(ring.k_full(st), T::kKStage);
-        R::load(k, &m.k, ring.k_full(st), 0, t * BK, BK, b);
-        R::load(k + T::kTileBytes, &m.k_lo, ring.k_full(st), 0, t * BK, BK, b);
+        R::load(k, &m.k, ring.k_full(st), 0, t * BK, BK, b, &m.k_tail);
+        R::load(k + T::kTileBytes, &m.k_lo, ring.k_full(st), 0, t * BK, BK, b, &m.k_lo_tail);
         RT::load(k + 2 * T::kTileBytes, &m.kt, ring.k_full(st), t * BK, 0, D, b);
         RT::load(k + 3 * T::kTileBytes, &m.kt_lo, ring.k_full(st), t * BK, 0, D, b);
         mbar_wait(ring.v_empty(st), phase ^ 1);
         mbar_arrive_expect_tx(ring.v_full(st), T::kVStage);
-        R::load(v, &m.v, ring.v_full(st), 0, t * BK, BK, b);
-        R::load(v + T::kTileBytes, &m.v_lo, ring.v_full(st), 0, t * BK, BK, b);
+        R::load(v, &m.v, ring.v_full(st), 0, t * BK, BK, b, &m.v_tail);
+        R::load(v + T::kTileBytes, &m.v_lo, ring.v_full(st), 0, t * BK, BK, b, &m.v_lo_tail);
         if (++st == S) {
           st = 0;
           phase ^= 1;
@@ -909,10 +927,10 @@ __global__ void __launch_bounds__(DkvF32Tiles<D>::kThreads, 1)
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_arrive_expect_tx(kv_full, 4 * T::kKVBytes);
-        R::load(k_s, &m.k, kv_full, 0, k0, T::kRowsKV, b);
-        R::load(klo_s, &m.k_lo, kv_full, 0, k0, T::kRowsKV, b);
-        R::load(v_s, &m.v, kv_full, 0, k0, T::kRowsKV, b);
-        R::load(vlo_s, &m.v_lo, kv_full, 0, k0, T::kRowsKV, b);
+        R::load(k_s, &m.k, kv_full, 0, k0, T::kRowsKV, b, &m.k_tail);
+        R::load(klo_s, &m.k_lo, kv_full, 0, k0, T::kRowsKV, b, &m.k_lo_tail);
+        R::load(v_s, &m.v, kv_full, 0, k0, T::kRowsKV, b, &m.v_tail);
+        R::load(vlo_s, &m.v_lo, kv_full, 0, k0, T::kRowsKV, b, &m.v_lo_tail);
       }
       // Lane 0 issues the TMA loads of the stage; every lane copies its share
       // of the stage's lse * log2(e) and delta (read before the stage is free)
@@ -941,10 +959,10 @@ __global__ void __launch_bounds__(DkvF32Tiles<D>::kThreads, 1)
         }
         if (lane == 0) {
           mbar_arrive_expect_tx(full(st), T::kStageBytes);
-          R::load(tile(st, 0), &m.q, full(st), 0, t * BQ, BQ, b);
-          R::load(tile(st, 1), &m.q_lo, full(st), 0, t * BQ, BQ, b);
-          R::load(tile(st, 2), &m.dout, full(st), 0, t * BQ, BQ, b);
-          R::load(tile(st, 3), &m.do_lo, full(st), 0, t * BQ, BQ, b);
+          R::load(tile(st, 0), &m.q, full(st), 0, t * BQ, BQ, b, &m.q_tail);
+          R::load(tile(st, 1), &m.q_lo, full(st), 0, t * BQ, BQ, b, &m.q_lo_tail);
+          R::load(tile(st, 2), &m.dout, full(st), 0, t * BQ, BQ, b, &m.dout_tail);
+          R::load(tile(st, 3), &m.do_lo, full(st), 0, t * BQ, BQ, b, &m.do_lo_tail);
           RT::load(tile(st, 4), &m.qt, full(st), t * BQ, 0, D, b);
           RT::load(tile(st, 5), &m.qt_lo, full(st), t * BQ, 0, D, b);
           RT::load(tile(st, 6), &m.dot, full(st), t * BQ, 0, D, b);
@@ -1120,28 +1138,31 @@ struct Args {
 };
 
 // The fp32 kernels' tensor maps: the parts of Q, dO in tiles of `rows_q`
-// rows, of K, V in tiles of `rows_kv`; the transposed copies (rows of
-// length rounded up to kTransposePad) in tiles of `cols_t` columns and D rows.
+// rows, of K, V in tiles of `rows_kv` (each also in tail boxes where D has
+// them); the transposed copies (rows of length rounded up to kTransposePad)
+// in tiles of `cols_t` columns and D rows: K^T's for the dQ kernel (`dq`),
+// Q^T's and dO^T's for dK/dV.  The other kernel's copies are not encoded:
+// their parts may be null.
 template <int D>
-bool encode_f32_maps(F32Maps* m, const Args& a, int rows_q, int rows_kv, int cols_t) {
-  const int box = SwizzledRows<D, 4>::kBox, box_t = cols_t < 32 ? cols_t : 32;
+bool encode_f32_maps(F32Maps* m, const Args& a, int rows_q, int rows_kv, int cols_t, bool dq) {
+  using R = SwizzledRows<D, 4>;
+  const int box_t = cols_t < 32 ? cols_t : 32;
   const int np = (a.N + kTransposePad - 1) / kTransposePad * kTransposePad;
   const int mp = (a.M + kTransposePad - 1) / kTransposePad * kTransposePad;
   const void* const* p = a.parts;
-  return encode_map(&m->q, p[kQHi], a.B, a.N, D, box, rows_q, 4) &&
-         encode_map(&m->q_lo, p[kQLo], a.B, a.N, D, box, rows_q, 4) &&
-         encode_map(&m->dout, p[kDoHi], a.B, a.N, D, box, rows_q, 4) &&
-         encode_map(&m->do_lo, p[kDoLo], a.B, a.N, D, box, rows_q, 4) &&
-         encode_map(&m->k, p[kKHi], a.B, a.M, D, box, rows_kv, 4) &&
-         encode_map(&m->k_lo, p[kKLo], a.B, a.M, D, box, rows_kv, 4) &&
-         encode_map(&m->v, p[kVHi], a.B, a.M, D, box, rows_kv, 4) &&
-         encode_map(&m->v_lo, p[kVLo], a.B, a.M, D, box, rows_kv, 4) &&
-         encode_map(&m->qt, p[kQt], a.B, D, np, box_t, D, 4) &&
-         encode_map(&m->qt_lo, p[kQtLo], a.B, D, np, box_t, D, 4) &&
-         encode_map(&m->dot, p[kDot], a.B, D, np, box_t, D, 4) &&
-         encode_map(&m->dot_lo, p[kDotLo], a.B, D, np, box_t, D, 4) &&
-         encode_map(&m->kt, p[kKt], a.B, D, mp, box_t, D, 4) &&
-         encode_map(&m->kt_lo, p[kKtLo], a.B, D, mp, box_t, D, 4);
+  auto rows = [&](CUtensorMap* map, CUtensorMap* tail, int part, int n, int box_rows) {
+    return encode_map(map, p[part], a.B, n, D, R::kBox, box_rows, 4) &&
+           (R::kTailBytes == 0 || encode_map(tail, p[part], a.B, n, D, R::kTailBox, box_rows, 4));
+  };
+  auto cols = [&](CUtensorMap* map, int part, int n) { return encode_map(map, p[part], a.B, D, n, box_t, D, 4); };
+  const bool common =
+      rows(&m->q, &m->q_tail, kQHi, a.N, rows_q) && rows(&m->q_lo, &m->q_lo_tail, kQLo, a.N, rows_q) &&
+      rows(&m->dout, &m->dout_tail, kDoHi, a.N, rows_q) && rows(&m->do_lo, &m->do_lo_tail, kDoLo, a.N, rows_q) &&
+      rows(&m->k, &m->k_tail, kKHi, a.M, rows_kv) && rows(&m->k_lo, &m->k_lo_tail, kKLo, a.M, rows_kv) &&
+      rows(&m->v, &m->v_tail, kVHi, a.M, rows_kv) && rows(&m->v_lo, &m->v_lo_tail, kVLo, a.M, rows_kv);
+  if (dq) return common && cols(&m->kt, kKt, mp) && cols(&m->kt_lo, kKtLo, mp);
+  return common && cols(&m->qt, kQt, np) && cols(&m->qt_lo, kQtLo, np) && cols(&m->dot, kDot, np) &&
+         cols(&m->dot_lo, kDotLo, np);
 }
 
 template <int D>
@@ -1164,7 +1185,9 @@ cudaError_t launch_dq(const Args& a, void* dq, bool bf16) {
   } else {
     using T = DqF32Tiles<D>;
     F32Maps m;
-    if (a.parts == nullptr || !encode_f32_maps<D>(&m, a, T::kRowsQ, T::kKeys, T::kKeys)) return cudaErrorInvalidValue;
+    if (a.parts == nullptr || !encode_f32_maps<D>(&m, a, T::kRowsQ, T::kKeys, T::kKeys, true)) {
+      return cudaErrorInvalidValue;
+    }
     static const cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, T::kSmemBytes);  // once per kernel
     if (err != cudaSuccess) return err;
     const dim3 grid((a.N + T::kRowsQ - 1) / T::kRowsQ, a.B);
@@ -1178,24 +1201,28 @@ template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
   const float sl2 = a.scale * kLog2e;
   if (bf16) {
-    using T = DkvTiles<D>;
-    CUtensorMap tq, tk, tv, tdo;
-    if (!encode_map(&tq, a.q, a.B, a.N, D, T::kBox, T::kQueries) ||
-        !encode_map(&tdo, a.dout, a.B, a.N, D, T::kBox, T::kQueries) ||
-        !encode_map(&tk, a.k, a.B, a.M, D, T::kBox, T::kRowsKV) ||
-        !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kRowsKV)) {
-      return cudaErrorInvalidValue;
+    if constexpr (D == 40) {
+      return cudaErrorInvalidValue;  // bf16 steps K by 16 columns: no bf16 kernel at D=40
+    } else {
+      using T = DkvTiles<D>;
+      CUtensorMap tq, tk, tv, tdo;
+      if (!encode_map(&tq, a.q, a.B, a.N, D, T::kBox, T::kQueries) ||
+          !encode_map(&tdo, a.dout, a.B, a.N, D, T::kBox, T::kQueries) ||
+          !encode_map(&tk, a.k, a.B, a.M, D, T::kBox, T::kRowsKV) ||
+          !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kRowsKV)) {
+        return cudaErrorInvalidValue;
+      }
+      static const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
+      if (err != cudaSuccess) return err;
+      const dim3 grid((a.M + T::kRowsKV - 1) / T::kRowsKV, a.B);
+      using E = __nv_bfloat16;
+      flash_bwd_dkv_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
+          tq, tk, tv, tdo, a.lse, a.delta, static_cast<E*>(dk), static_cast<E*>(dv), a.N, a.M, sl2, a.scale);
     }
-    static const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.M + T::kRowsKV - 1) / T::kRowsKV, a.B);
-    using E = __nv_bfloat16;
-    flash_bwd_dkv_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, static_cast<E*>(dk), static_cast<E*>(dv), a.N, a.M, sl2, a.scale);
   } else {
     using T = DkvF32Tiles<D>;
     F32Maps m;
-    if (a.parts == nullptr || !encode_f32_maps<D>(&m, a, T::kQueries, T::kRowsKV, T::kQueries)) {
+    if (a.parts == nullptr || !encode_f32_maps<D>(&m, a, T::kQueries, T::kRowsKV, T::kQueries, false)) {
       return cudaErrorInvalidValue;
     }
     static const cudaError_t err = allow_smem(flash_bwd_dkv_f32_kernel<D>, T::kSmemBytes);  // once per kernel
@@ -1211,10 +1238,13 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
 
 // q, dout, dq [B,N,D]; k, v, dk, dv [B,M,D] (all contiguous, same dtype, 16-byte
 // aligned: the kernels read q, k, v, dout through TMA tensor maps); lse, delta
-// [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32, 64 or 128.
-// parts: for fp32, a host array of the device pointers of enum Part (made by
-// flash_attention.py::tf32_parts, each contiguous and 16-byte aligned); null
-// for bf16.  Each returns the cudaError_t of its launch (0 on success).
+// [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32, 64 or 128, and
+// for the fp32 dK/dV kernel also 40.  parts: for fp32, a host array of the
+// device pointers of enum Part (made by flash_attention.py::tf32_parts, each
+// contiguous and 16-byte aligned; the kernels read these, not q, k, v, dout),
+// where the transposed copies the kernel does not read (dQ: Q^T, dO^T; dK/dV:
+// K^T) may be null; null for bf16.  Each returns the cudaError_t of its launch
+// (0 on success).
 extern "C" int mrisr_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dq, int B, int N, int M, int D, int is_bf16,
@@ -1239,6 +1269,7 @@ extern "C" int mrisr_flash_attn_bwd_dkv(const void* q, const void* k, const void
                parts, B, N, M, scale, static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 32: return (int)launch_dkv<32>(a, dk, dv, is_bf16 != 0);
+    case 40: return (int)launch_dkv<40>(a, dk, dv, is_bf16 != 0);
     case 64: return (int)launch_dkv<64>(a, dk, dv, is_bf16 != 0);
     case 128: return (int)launch_dkv<128>(a, dk, dv, is_bf16 != 0);
   }

@@ -80,9 +80,9 @@
 //     consumer warpgroups of 64 Q rows.  Q's hi and lo parts are loaded once;
 //     K hi/lo and V^T hi/lo tiles of BK keys stream through the K/V ring
 //     (full/empty mbarriers; K is released once S has retired, V^T once P V
-//     has).  Per D (F32Tiles; sweep): two consumers and BK = 64 at D=32; one
-//     consumer at D=64 (BK 64) and D=128 (BK 32), where Q's two parts of 64
-//     rows take 32 / 64 KB.
+//     has).  Per D (F32Tiles; sweep): two consumers and BK = 64 at D=32 and
+//     D=40; one consumer at D=64 (BK 64) and D=128 (BK 32), where Q's two
+//     parts of 64 rows take 32 / 64 KB.
 //   * Each operand x is split into hi = x rounded to tf32 and lo = x - hi
 //     rounded (to nearest: the tensor cores drop a raw operand's 13 low
 //     bits), and a product takes lo hi + hi lo + hi hi.  The parts of Q, K
@@ -110,6 +110,24 @@
 //     P(t-1) V(t-1); the softmax of tile t runs while that product does; two
 //     consumers take turns on named barriers.  wgmma operands are pinned with
 //     fence_regs and every group is issued on a path fixed at compile time.
+//
+// fp32 at D=40: SD1.5's heads (the latent chain's self-attention at 128^2
+// latents).  Bound at the fused 1024^2 chain's 32x16384^2x40: 4 B N M D = 1.37
+// TFLOP, three tf32 passes -> 8.33 ms at 495 TFLOP/s (16x: 4.16), the
+// exponentials' 2.3 ms under it.  A pad to 64 makes every product 1.6x that.
+//   * No pad: a 160-byte row is a 128-byte box (128B swizzle) and a 32-byte
+//     tail box (32B swizzle) read through a second tensor map
+//     (SwizzledRows); the tail is exactly one tf32 k-step, whose descriptor
+//     names its box and swizzle mode.  S = Q K^T takes 5 k-steps; V^T tiles
+//     (40 rows of BK keys) keep D=32's layout with 40 rows, and P V runs at
+//     wgmma N = 40 (m64n40k8, 20 accumulator registers a thread).
+//   * D=32's shape: two consumers of 64 Q rows taking turns, BK = 64 (Q's
+//     parts of 128 rows take 40 KB, a stage 40 KB), 3 stages.  Sweep at 32 /
+//     16 x 16384^2 x 40 (ms in PERF.md): 4 stages 2-9 % slower, 2 stages 2-5
+//     %, one consumer 26-30 %, BK = 32 13-19 %; without turns 2-8 % slower.
+//   * Where the time goes (sweep ablations at 32x): one tf32 pass halves the
+//     time (7.3-7.5 ms of 14.1-14.8 at 4 stages), no exponentials changes
+//     nothing: the three passes on the tensor cores set it.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -467,18 +485,20 @@ constexpr int kTransposePad = 64;
 // memory twice (high and low part) and each stage holds K, K lo, V^T, V^T lo.
 template <int D>
 struct F32Tiles {
-  using Rows = SwizzledRows<D, 4>;  // Q, K tiles: D columns
+  using Rows = SwizzledRows<D, 4>;  // Q, K tiles: D columns (at D=40 a 128-byte box and a 32-byte tail box)
   // At D=64 and 128 the owned Q tiles (64 rows, 16 bytes a column) leave room
-  // for one consumer's rows only, with stages of 64 / 32 keys.
-  static constexpr int kConsumers = D == 32 ? 2 : 1;
+  // for one consumer's rows only, with stages of 64 / 32 keys; D=40 has D=32's
+  // shape (Q's parts of 128 rows 40 KB, a stage of 64 keys 40 KB).
+  static constexpr int kConsumers = D <= 40 ? 2 : 1;
   static constexpr int kRowsQ = 64 * kConsumers;
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = 240;
   static constexpr int kKeys = D == 128 ? 32 : 64;  // BK: keys per K/V tile
   using RowsT = SwizzledRows<kKeys, 4>;              // V^T tiles: BK columns
-  // The loop issues tile t's scores before it releases tile t - 1: two stages at least.
-  static constexpr int kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);
+  // The loop issues tile t's scores before it releases tile t - 1: two stages at least.  At D=40 three
+  // stages were 3-8 % faster than four (sweep).
+  static constexpr int kStages = D == 32 ? 4 : (D == 128 ? 2 : 3);
   // The two consumer warpgroups take turns issuing on named barriers.
   static constexpr bool kPingPong = kConsumers == 2;
   static constexpr int kQBytes = kRowsQ * D * 4;     // each of Q, Q lo
@@ -489,9 +509,11 @@ struct F32Tiles {
   static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
 
-// The tensor maps of the fp32 kernel: the parts it reads.
+// The tensor maps of the fp32 kernel: the parts it reads, and at D=40 the
+// tail boxes of the D-wide ones (SwizzledRows).
 struct F32Maps {
   CUtensorMap q, q_lo, k, k_lo, vt, vt_lo;
+  CUtensorMap q_tail, q_lo_tail, k_tail, k_lo_tail;
 };
 
 // The online-softmax update of one fp32 score tile, in place.  s: this
@@ -586,16 +608,16 @@ __global__ void __launch_bounds__(F32Tiles<D>::kThreads, 1)
     if constexpr (T::kConsumers > 1) setmaxnreg_dec<T::kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(q_full, 2 * T::kQBytes);
-      R::load(q_s, &m.q, q_full, 0, q0, T::kRowsQ, b);
-      R::load(q_s + T::kQBytes, &m.q_lo, q_full, 0, q0, T::kRowsQ, b);
+      R::load(q_s, &m.q, q_full, 0, q0, T::kRowsQ, b, &m.q_tail);
+      R::load(q_s + T::kQBytes, &m.q_lo, q_full, 0, q0, T::kRowsQ, b, &m.q_lo_tail);
       int st = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
         const uint32_t k = k_at(st), v = v_at(st);
         mbar_wait(ring.k_empty(st), phase ^ 1);
         mbar_arrive_expect_tx(ring.k_full(st), 2 * T::kTileBytes);
-        R::load(k, &m.k, ring.k_full(st), 0, t * BK, BK, b);
-        R::load(k + T::kTileBytes, &m.k_lo, ring.k_full(st), 0, t * BK, BK, b);
+        R::load(k, &m.k, ring.k_full(st), 0, t * BK, BK, b, &m.k_tail);
+        R::load(k + T::kTileBytes, &m.k_lo, ring.k_full(st), 0, t * BK, BK, b, &m.k_lo_tail);
         mbar_wait(ring.v_empty(st), phase ^ 1);
         mbar_arrive_expect_tx(ring.v_full(st), 2 * T::kTileBytes);
         RT::load(v, &m.vt, ring.v_full(st), t * BK, 0, D, b);
@@ -741,18 +763,24 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 }
 
 // The fp32 kernel's tensor maps: Q's parts in tiles of the CTA's rows, K's of
-// BK rows, V^T's (rows of M rounded up to kTransposePad) of BK columns and D rows.
+// BK rows (each also in tail boxes where D has them), V^T's (rows of M rounded
+// up to kTransposePad) of BK columns and D rows.
 template <int D>
 cudaError_t launch_f32(const void* const* parts, void* o, float* lse, int B, int N, int M, float scale_log2,
                        cudaStream_t stream) {
   using T = F32Tiles<D>;
-  const int box = SwizzledRows<D, 4>::kBox, box_t = T::RowsT::kBox;
+  using R = typename T::Rows;
+  const int box_t = T::RowsT::kBox;
   const int mp = (M + kTransposePad - 1) / kTransposePad * kTransposePad;
   F32Maps m;
-  if (parts == nullptr || !encode_map(&m.q, parts[kQHi], B, N, D, box, T::kRowsQ, 4) ||
-      !encode_map(&m.q_lo, parts[kQLo], B, N, D, box, T::kRowsQ, 4) ||
-      !encode_map(&m.k, parts[kKHi], B, M, D, box, T::kKeys, 4) ||
-      !encode_map(&m.k_lo, parts[kKLo], B, M, D, box, T::kKeys, 4) ||
+  // A D-wide part in boxes of R::kBox columns, and of R::kTailBox where there is a tail.
+  auto rows = [&](CUtensorMap* map, CUtensorMap* tail, int part, int n, int box_rows) {
+    return encode_map(map, parts[part], B, n, D, R::kBox, box_rows, 4) &&
+           (R::kTailBytes == 0 || encode_map(tail, parts[part], B, n, D, R::kTailBox, box_rows, 4));
+  };
+  if (parts == nullptr || !rows(&m.q, &m.q_tail, kQHi, N, T::kRowsQ) ||
+      !rows(&m.q_lo, &m.q_lo_tail, kQLo, N, T::kRowsQ) || !rows(&m.k, &m.k_tail, kKHi, M, T::kKeys) ||
+      !rows(&m.k_lo, &m.k_lo_tail, kKLo, M, T::kKeys) ||
       !encode_map(&m.vt, parts[kVt], B, D, mp, box_t, D, 4) ||
       !encode_map(&m.vt_lo, parts[kVtLo], B, D, mp, box_t, D, 4)) {
     return cudaErrorInvalidValue;
@@ -769,7 +797,7 @@ cudaError_t launch_f32(const void* const* parts, void* o, float* lse, int B, int
 
 // q [B,N,D], k and v [B,M,D], o [B,N,D] (all contiguous, same dtype, 16-byte
 // aligned), lse [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32,
-// 64 or 128; the bf16 kernel takes scale > 0 only.  parts: for fp32, a host
+// 64 or 128, and for fp32 also 40; the bf16 kernel takes scale > 0 only.  parts: for fp32, a host
 // array of the device pointers of enum Part (made by
 // flash_attention.py::tf32_fwd_parts, each contiguous and 16-byte aligned; the
 // kernel reads these, not q, k, v); null for bf16.
@@ -791,6 +819,7 @@ extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v,
   } else {
     switch (D) {
       case 32: return (int)launch_f32<32>(parts, o, l, B, N, M, sl2, st);
+      case 40: return (int)launch_f32<40>(parts, o, l, B, N, M, sl2, st);
       case 64: return (int)launch_f32<64>(parts, o, l, B, N, M, sl2, st);
       case 128: return (int)launch_f32<128>(parts, o, l, B, N, M, sl2, st);
     }

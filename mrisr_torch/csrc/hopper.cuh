@@ -105,9 +105,10 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // ---- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), and the swizzle mode (1 = 128B, 2 = 64B, 0 = none).
-// A swizzled tile's base must be aligned to the swizzle's repeat (1024 bytes
-// for 128B, 512 for 64B); then the start may step by k-offsets inside a row.
+// offsets (16-byte units), and the swizzle mode (1 = 128B, 2 = 64B, 3 = 32B,
+// 0 = none).  A swizzled tile's base must be aligned to the swizzle's repeat
+// (1024 bytes for 128B, 512 for 64B, 256 for 32B); then the start may step by
+// k-offsets inside a row.
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes, uint32_t swizzle) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
@@ -307,6 +308,17 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 40] (+)= A[64 x 8] B[8 x 40] in tf32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss_n40(float (&d)[20], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 64] (+)= A[64 x 8] B[8 x 64] in tf32: A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -327,6 +339,18 @@ __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 40] (+)= A[64 x 8] B[8 x 40] in tf32: A in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
@@ -364,6 +388,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   if constexpr (N == 16) wgmma_tf32_ss_n16(d, desc_a, desc_b, scale_d);
   if constexpr (N == 32) wgmma_tf32_ss_n32(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 40) wgmma_tf32_ss_n40(d, desc_a, desc_b, scale_d);
   if constexpr (N == 64) wgmma_tf32_ss_n64(d, desc_a, desc_b, scale_d);
 }
 
@@ -371,6 +396,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
                                               int scale_d = 1) {
   if constexpr (N == 32) wgmma_tf32_rs_n32(d, a, desc_b, scale_d);
+  if constexpr (N == 40) wgmma_tf32_rs_n40(d, a, desc_b, scale_d);
   if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_tf32_rs_n128(d, a, desc_b, scale_d);
 }
@@ -501,20 +527,30 @@ __device__ __forceinline__ float ex2(float x) {
 // writes them: boxes of up to 128 bytes a row (128B swizzle; a 64-byte row
 // takes the 64B swizzle), one box after the other.  bf16 tiles are one box
 // of D columns at D=32 (64-byte rows) and 64 (128), two of 64 at D=128; fp32
-// tiles are boxes of 32 columns, or one of 16.  A tile's base is 1024-byte
-// aligned.  A wgmma k-step is 32 bytes of a row: 16 bf16 or 8 tf32 columns.
+// tiles are boxes of 32 columns, or one of 16.  A row of 160 bytes (fp32,
+// D=40) is one 128-byte box and a tail box of 8 columns (32 bytes, 32B
+// swizzle), read through a second tensor map: a TMA box may not be wider than
+// its swizzle span, and 160 is no multiple of 128.  A tile's base is 1024-byte
+// aligned.  A wgmma k-step is 32 bytes of a row: 16 bf16 or 8 tf32 columns, so
+// the tail box is exactly one tf32 k-step.
 template <int C, int E = 2>
 struct SwizzledRows {
   static constexpr int kRowBytes = C * E < 128 ? C * E : 128;  // bytes per row of a box: 64 or 128
   static constexpr int kBox = kRowBytes / E;                   // columns per TMA box
-  static constexpr int kBoxes = C / kBox;
+  static constexpr int kBoxes = C * E / kRowBytes;             // full boxes
+  static constexpr int kTailBytes = C * E % kRowBytes;         // bytes per row of the tail box: 0 or 32
+  static constexpr int kTailBox = kTailBytes / E;              // columns of the tail box
   static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B
   static constexpr int kSbo = 8 * kRowBytes;                   // bytes between 8-row groups of a box
-  static_assert(kRowBytes == 64 || C * E % 128 == 0, "tile width");
+  static_assert((kRowBytes == 64 || kRowBytes == 128) && (kTailBytes == 0 || kTailBytes == 32), "tile width");
 
   // K-major operand (the product sums over the C columns): rows row0.. of a
-  // tile of `rows` rows, k-step kk.
+  // tile of `rows` rows, k-step kk.  kk is a constant after unrolling, so the
+  // tail's branch is resolved at compile time.
   __device__ static __forceinline__ uint64_t k_major(uint32_t tile, int rows, int row0, int kk) {
+    if (kTailBytes != 0 && kk * 32 >= kBoxes * kRowBytes) {  // the tail box: 32-byte rows, 32B swizzle (3)
+      return make_desc(tile + kBoxes * rows * kRowBytes + row0 * kTailBytes, 16, 8 * kTailBytes, 3);
+    }
     const int x = kk * 32 / kRowBytes, col = kk * 32 % kRowBytes;
     return make_desc(tile + x * rows * kRowBytes + row0 * kRowBytes + col, 16, kSbo, kSwizzle);
   }
@@ -523,14 +559,20 @@ struct SwizzledRows {
   // transpose bit): k-step kk is rows 16kk..16kk+15 of a tile of `rows` rows,
   // its boxes `rows * kRowBytes` apart (the leading byte offset).
   __device__ static __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kk) {
+    static_assert(kTailBytes == 0, "MN-major tiles have no tail box");
     return make_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, kSbo, kSwizzle);
   }
 
-  // TMA: rows row0.. (rows of them) and columns col0.. of a [batch, *, *] map into `tile`.
+  // TMA: rows row0.. (rows of them) and columns col0.. of a [batch, *, *] map
+  // into `tile`; the tail box, where there is one, through the map `tail`
+  // (the same tensor in boxes of kTailBox columns).
   __device__ static __forceinline__ void load(uint32_t tile, const CUtensorMap* map, uint32_t bar, int col0,
-                                              int row0, int rows, int b) {
+                                              int row0, int rows, int b, const CUtensorMap* tail = nullptr) {
 #pragma unroll
     for (int x = 0; x < kBoxes; ++x) tma_load_3d(tile + x * rows * kRowBytes, map, bar, col0 + x * kBox, row0, b);
+    if constexpr (kTailBytes != 0) {
+      tma_load_3d(tile + kBoxes * rows * kRowBytes, tail, bar, col0 + kBoxes * kBox, row0, b);
+    }
   }
 };
 
@@ -651,7 +693,7 @@ EncodeTiled encode_tiled() {
 
 // A 3-D map over a contiguous [batch, rows, cols] tensor of bf16 (elem_bytes
 // 2) or fp32 (4), read in boxes of box_rows x box_cols (box_cols * elem_bytes
-// is the swizzle width, 64 or 128 bytes).  The zero fill past the last row
+// is the swizzle width, 32, 64 or 128 bytes).  The zero fill past the last row
 // (and column) happens per batch.
 bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int cols, int box_cols, int box_rows,
                 int elem_bytes = 2) {
@@ -661,8 +703,10 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int cols
   const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes, (cuuint64_t)rows * cols * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const int box_bytes = box_cols * elem_bytes;
+  const CUtensorMapSwizzle swizzle = box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUtensorMapDataType type = elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -17,12 +17,18 @@ described in its source.
 
 On a CPU tensor each runs its plain version (``flash_attention_plain``,
 ``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
-(bf16 or float32; the bf16 forward takes scale > 0) or raises.  The kernels
-exist for D in {32, 64, 128}: a narrower head is zero-padded to the next of
-them and the result sliced back (exact: zero columns add nothing to q k^T,
-to o, or to delta), and D > 128 raises.  The float32 kernels run on the
-tensor cores in 3xTF32: ``flash_attention_fwd`` and ``flash_attention_bwd``
-first make their operands with ``tf32_fwd_parts`` and ``tf32_parts``.
+(bf16 or float32; the bf16 forward takes scale > 0) or raises.  The head
+widths each kernel takes (``KERNEL_HEAD_DIMS``): D in {32, 64, 128} in bf16,
+whose k-step is 16 columns, and for the dQ kernel in float32; D in {32, 40,
+64, 128} for the float32 forward and dK/dV kernels (tf32's k-step is 8
+columns, so SD1.5's 40-wide heads take no pad).  A narrower head is
+zero-padded to the next width its kernel takes and the result sliced back
+(exact: zero columns add nothing to q k^T, to o, or to delta); in float32 a
+40-wide head reaches the dQ kernel as its 3xTF32 parts zero-padded to 64
+(``pad_dq_parts``), which are those of the padded inputs bit for bit.  D >
+128 raises.  The float32 kernels run on the tensor cores in 3xTF32:
+``flash_attention_fwd`` and ``flash_attention_bwd`` first make their operands
+with ``tf32_fwd_parts`` and ``tf32_parts``.
 """
 from __future__ import annotations
 
@@ -34,7 +40,11 @@ from mrisr_torch._build import build_libraries, load_library
 from mrisr_torch.device import device_ctx
 
 KERNEL_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# (kernel, dtype) -> the head widths it takes: ``fwd`` (B1), ``dq`` (B2a), ``dkv`` (B2b).
+_BF16_DIMS, _TF32_DIMS = (32, 64, 128), (32, 40, 64, 128)
+KERNEL_HEAD_DIMS = {("fwd", torch.bfloat16): _BF16_DIMS, ("fwd", torch.float32): _TF32_DIMS,
+                    ("dq", torch.bfloat16): _BF16_DIMS, ("dq", torch.float32): _BF16_DIMS,
+                    ("dkv", torch.bfloat16): _BF16_DIMS, ("dkv", torch.float32): _TF32_DIMS}
 PLAIN_CHUNK = 512
 # The tensor cores read an fp32 operand of a tf32 product as its bits with the
 # 13 low mantissa bits dropped (``mrisr_torch/tools/tf32_probe.py`` checks it
@@ -117,9 +127,12 @@ def transpose_permuted(x: torch.Tensor, pad: int = TRANSPOSE_PAD) -> torch.Tenso
     return x.reshape(b, np_ // 8, 4, 2, d).permute(0, 4, 1, 3, 2).reshape(b, d, np_)
 
 
-# The fp32 kernels' operands, in the order of the C interface's `parts`.
+# The fp32 kernels' operands, in the order of the C interface's `parts`, and the ones each kernel reads:
+# the dQ kernel the transposed K, the dK/dV kernel the transposed Q and dO.
 TF32_PARTS = ("q_hi", "k_hi", "v_hi", "do_hi", "q_lo", "k_lo", "v_lo", "do_lo",
               "qt", "qt_lo", "dot", "dot_lo", "kt", "kt_lo")
+DQ_PARTS = TF32_PARTS[:8] + ("kt", "kt_lo")
+DKV_PARTS = TF32_PARTS[:12]
 
 
 def tf32_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -150,18 +163,35 @@ def tf32_fwd_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict[st
             "vt": transpose_permuted(v_hi), "vt_lo": transpose_permuted(tf32_hi(v - v_hi))}
 
 
-def kernel_head_dim(d: int) -> int:
-    """The kernels' head width that takes a head of width ``d``: the least of ``KERNEL_HEAD_DIMS`` >= d."""
-    for kd in KERNEL_HEAD_DIMS:
+def kernel_head_dim(d: int, dtype: torch.dtype = torch.bfloat16, kernel: str = "fwd") -> int:
+    """The head width the ``kernel`` (``fwd``, ``dq`` or ``dkv``) takes a ``dtype`` head of width ``d`` at:
+    the least of its ``KERNEL_HEAD_DIMS`` >= d."""
+    dims = KERNEL_HEAD_DIMS[kernel, dtype]
+    for kd in dims:
         if 1 <= d <= kd:
             return kd
-    raise ValueError(f"flash kernel takes D up to {KERNEL_HEAD_DIMS[-1]}, got D={d}")
+    raise ValueError(f"flash kernel takes D up to {dims[-1]}, got D={d}")
 
 
 def _pad_head_dim(x: torch.Tensor, d_to: int) -> torch.Tensor:
     """``[B, S, D] -> [B, S, d_to]`` with zero columns past D (``x`` itself when D == d_to)."""
     d = x.shape[-1]
     return x if d == d_to else torch.nn.functional.pad(x, (0, d_to - d))
+
+
+def pad_dq_parts(parts: dict[str, torch.Tensor], d_to: int) -> dict[str, torch.Tensor]:
+    """The parts the dQ kernel reads (``DQ_PARTS``) of :func:`tf32_parts`, zero-padded to head width ``d_to``:
+    the hi/lo columns of q, k, v, do and the rows of the transposed k.  Zero splits into zero parts, so they
+    are :func:`tf32_parts` of the zero-padded inputs, bit for bit.  A part already ``d_to`` wide is kept."""
+    pad = torch.nn.functional.pad
+    out = {}
+    for name in DQ_PARTS:
+        t = parts[name]
+        if name in ("kt", "kt_lo"):  # [B, D, Mp]
+            out[name] = t if t.shape[1] == d_to else pad(t, (0, 0, 0, d_to - t.shape[1]))
+        else:
+            out[name] = _pad_head_dim(t, d_to)
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -211,18 +241,21 @@ def _kernel_fn(fn_name: str):
     return fn
 
 
-def _check_kernel_inputs(d: int, batch: int, **tensors: torch.Tensor) -> None:
-    """Raise on what the kernels cannot take.
+def _check_kernel_inputs(d: int, batch: int, kernel: str = "fwd", **tensors: torch.Tensor) -> None:
+    """Raise on what the ``kernel`` (``fwd``, ``dq`` or ``dkv``) cannot take: D outside its
+    ``KERNEL_HEAD_DIMS``, and tensors it cannot read (:func:`_check_tensors`)."""
+    _check_tensors(batch, **tensors)
+    dtype = next(iter(tensors.values())).dtype
+    if d not in KERNEL_HEAD_DIMS[kernel, dtype]:
+        raise ValueError(f"flash {kernel} kernel takes D in {KERNEL_HEAD_DIMS[kernel, dtype]} for {dtype}, got {d}")
 
-    The bf16 kernels read Q, K, V (and dO) through TMA tensor maps, which
-    need a 16-byte aligned base and contiguous rows; lse and delta are read
-    by row; every kernel takes D in ``KERNEL_HEAD_DIMS`` only.
-    """
+
+def _check_tensors(batch: int, **tensors: torch.Tensor) -> None:
+    """Raise on tensors the kernels cannot read: they read Q, K, V (and dO, or the float32 kernels' parts)
+    through TMA tensor maps, which need a 16-byte aligned base and contiguous rows; lse and delta by row."""
     dtype = next(iter(tensors.values())).dtype
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernel takes bfloat16 or float32, got {dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes D in {KERNEL_HEAD_DIMS}, got {d}")
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the kernel's grid limit")
     for name, t in tensors.items():
@@ -237,7 +270,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     the kernel's operands (:func:`tf32_fwd_parts`)."""
     b, n, d = q.shape
     m = k.shape[1]
-    _check_kernel_inputs(d, b, q=q, k=k, v=v)
+    _check_kernel_inputs(d, b, "fwd", q=q, k=k, v=v)
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"the bf16 flash kernel takes scale > 0, got {scale}")
     parts = tf32_fwd_parts(q, k, v) if q.dtype == torch.float32 else None
@@ -266,7 +299,7 @@ def flash_attention_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     d = q.shape[2]
-    kd = kernel_head_dim(d)
+    kd = kernel_head_dim(d, q.dtype, "fwd")
     o, lse = _launch(*(_pad_head_dim(t, kd) for t in (q, k, v)), scale)
     flash_attention_fwd.launches += 1
     for seen in flash_attention_fwd.shapes:  # the recordings open (``ops.recording_shapes``)
@@ -290,64 +323,77 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         raise ValueError("tensors on different devices")
 
 
-def _check_parts(q: torch.Tensor, k: torch.Tensor, parts, names: tuple[str, ...] = TF32_PARTS) -> None:
-    """Raise unless ``parts`` is what :func:`tf32_parts` (``names=TF32_PARTS``) or :func:`tf32_fwd_parts`
-    (``TF32_FWD_PARTS``) makes for float32 ``q``, ``k`` (None for bf16)."""
+def _check_parts(q: torch.Tensor, k: torch.Tensor, parts, names: tuple[str, ...] = TF32_PARTS,
+                 d: int | None = None) -> None:
+    """Raise unless ``parts`` holds the ``names`` of what :func:`tf32_parts` (``TF32_PARTS``, or the parts a
+    kernel reads: ``DQ_PARTS``, ``DKV_PARTS``) or :func:`tf32_fwd_parts` (``TF32_FWD_PARTS``) makes for
+    float32 ``q``, ``k`` at head width ``d`` (q's, or wider for parts padded to it: :func:`pad_dq_parts`);
+    None for bf16.  Other parts are not read."""
     if q.dtype != torch.float32:
         if parts is not None:
             raise ValueError("the 3xTF32 parts are for float32 inputs only")
         return
-    if parts is None or tuple(parts) != names:
+    if parts is None or not set(names) <= set(parts):
         raise ValueError(f"float32 kernels take the parts {names}")
-    (b, n, d), m = q.shape, k.shape[1]
+    (b, n, _), m = q.shape, k.shape[1]
+    d = q.shape[2] if d is None else d
     np_, mp = (-(-x // TRANSPOSE_PAD) * TRANSPOSE_PAD for x in (n, m))
-    shapes = {"q_hi": q.shape, "do_hi": q.shape, "k_hi": k.shape, "v_hi": k.shape,
-              "q_lo": q.shape, "do_lo": q.shape, "k_lo": k.shape, "v_lo": k.shape, "qt": (b, d, np_),
-              "qt_lo": (b, d, np_), "dot": (b, d, np_), "dot_lo": (b, d, np_), "kt": (b, d, mp), "kt_lo": (b, d, mp),
-              "vt": (b, d, mp), "vt_lo": (b, d, mp)}
-    for name, t in parts.items():
+    qs, ks = (b, n, d), (b, m, d)
+    shapes = {"q_hi": qs, "do_hi": qs, "k_hi": ks, "v_hi": ks, "q_lo": qs, "do_lo": qs, "k_lo": ks, "v_lo": ks,
+              "qt": (b, d, np_), "qt_lo": (b, d, np_), "dot": (b, d, np_), "dot_lo": (b, d, np_), "kt": (b, d, mp),
+              "kt_lo": (b, d, mp), "vt": (b, d, mp), "vt_lo": (b, d, mp)}
+    for name in names:
+        t = parts[name]
         if tuple(t.shape) != tuple(shapes[name]) or t.device != q.device:
             raise ValueError(f"part {name}: {tuple(t.shape)} on {t.device}, expected {tuple(shapes[name])} on {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"part {name} is {t.dtype}, expected torch.float32")
-    _check_kernel_inputs(d, b, **parts)
+    _check_tensors(b, **{name: parts[name] for name in names})
 
 
-def _parts_arg(q, k, v, do, parts):
-    """The C interface's ``parts``: a host array of the parts' device pointers (None for bf16), and
-    the parts, which must live until the launch is enqueued."""
+def _parts_arg(q, k, v, do, parts, names: tuple[str, ...] = TF32_PARTS, d: int | None = None):
+    """The C interface's ``parts``: a host array of the device pointers of ``names`` in ``TF32_PARTS`` order,
+    null for the others (None for bf16), and the parts, which must live until the launch is enqueued."""
     if q.dtype == torch.float32 and parts is None:
         parts = tf32_parts(q, k, v, do)
-    _check_parts(q, k, parts)
+    _check_parts(q, k, parts, names, d)
     if parts is None:
         return None, None
-    return (ctypes.c_void_p * len(TF32_PARTS))(*(parts[name].data_ptr() for name in TF32_PARTS)), parts
+    ptrs = (parts[x].data_ptr() if x in names else None for x in TF32_PARTS)
+    return (ctypes.c_void_p * len(TF32_PARTS))(*ptrs), parts
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, parts=None) -> torch.Tensor:
     """Launch the dQ kernel: ``delta`` is ``rowsum(do * o)`` in float32, ``[B, N]``; ``parts`` (float32
-    only) is :func:`tf32_parts` of the inputs, made here when not given."""
+    only) is :func:`tf32_parts` of the inputs, made here when not given.  A float32 head the kernel does
+    not take (D=40) runs at the next width it takes, on the parts zero-padded to it (:func:`pad_dq_parts`;
+    ``parts`` may already be), and dq is sliced back."""
     b, n, d = q.shape
-    _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
-    ptrs, parts = _parts_arg(q, k, v, do, parts)
-    dq = torch.empty_like(q)
+    kd = d
+    if q.dtype == torch.float32:
+        kd = kernel_head_dim(d, q.dtype, "dq")
+        if kd != d:
+            parts = pad_dq_parts(tf32_parts(q, k, v, do) if parts is None else parts, kd)
+    _check_kernel_inputs(kd, b, "dq", q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    ptrs, parts = _parts_arg(q, k, v, do, parts, DQ_PARTS, kd)
+    dq = torch.empty((b, n, kd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
+            dq.data_ptr(), b, n, k.shape[1], kd, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention dQ kernel launch failed: cudaError {err}")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq if kd == d else dq[..., :d].contiguous()
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, parts=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel; arguments as :func:`flash_attention_bwd_dq`."""
+    """Launch the dK/dV kernel; arguments as :func:`flash_attention_bwd_dq` (its D as the kernel takes it)."""
     b, n, d = q.shape
-    _check_kernel_inputs(d, b, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
-    ptrs, parts = _parts_arg(q, k, v, do, parts)
+    _check_kernel_inputs(d, b, "dkv", q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    ptrs, parts = _parts_arg(q, k, v, do, parts, DKV_PARTS)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with device_ctx(q.device):
@@ -377,12 +423,13 @@ def flash_attention_bwd(
         raise ValueError(f"unsupported device {q.device}")
     # As in the reference, delta is reduced outside the kernels; so are the
     # float32 kernels' 3xTF32 parts, made once for both.  A head narrower
-    # than the kernels' is zero-padded after delta is taken and sliced back.
+    # than the dK/dV kernel's is zero-padded after delta is taken and sliced
+    # back; the dQ kernel pads the parts it reads where it takes no such head.
     delta = (do.float() * o.float()).sum(dim=-1)
     d = q.shape[2]
     for seen in flash_attention_bwd.shapes:
         seen[(*q.shape[:2], k.shape[1], d, q.dtype)] += 1
-    kd = kernel_head_dim(d)
+    kd = kernel_head_dim(d, q.dtype, "dkv")
     q, k, v, do = (_pad_head_dim(t, kd) for t in (q, k, v, do))
     parts = tf32_parts(q, k, v, do) if q.dtype == torch.float32 else None
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, parts)

@@ -1,6 +1,7 @@
 """Time design variants of the flash-attention backward (``csrc/flash_attn_bwd.cu``) on one GPU.
 
-Run from the repository root: ``python3 -m mrisr_torch.tools.flash_bwd_sweep``.
+Run from the repository root: ``python3 -m mrisr_torch.tools.flash_bwd_sweep``
+(``--variants`` and ``--d`` as in ``flash_fwd_sweep``).
 As ``flash_fwd_sweep``: each variant is the checked-in source with a few
 lines replaced, all are built at once (under
 ``mrisr_torch/.build/sweep/flash_attn_bwd/``), each variant's dQ and dK/dV
@@ -37,6 +38,10 @@ fp32 (3xTF32) variants:
   16 queries in 3 stages);
 * ``f32_dq_two_consumers_d64``: dQ at D=64 with two consumers (128 Q rows
   a CTA) and 32 keys in 2 stages (design: one consumer, 3 stages);
+* ``f32_dkv_stages2_d40``: dK/dV at D=40 in 2 stages (design: 32 queries in
+  3; 16 queries would leave the D-wide tiles off their 1024-byte alignment);
+* ``f32_dkv_one_consumer_d40``: dK/dV at D=40 with one consumer (64 K/V rows
+  a CTA), 32 queries in 4 stages;
 * ablations, timed only: ``f32_ablate_1xtf32`` (only the hi·hi product of
   each 3xTF32 triple), ``f32_ablate_exp`` (no exponentials, in both
   kernels), ``f32_ablate_second`` (no dQ, dV, dK products).
@@ -50,10 +55,13 @@ import sys
 import torch
 
 from mrisr_torch.ops import flash_attention as fa
-from mrisr_torch.tools.flash_fwd_sweep import build_variants, card, entry
+from mrisr_torch.tools.flash_fwd_sweep import build_variants, card, entry, parse_args
 
 SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4096, 4096, 128), (8, 16384, 256, 32)]
-SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128)]
+# The fp32 shapes: the ResDiff sites, and the SD route's 1024^2 training step (16 and 8 heads x lanes); at
+# D=40 dQ runs at 64 on its parts zero-padded (as flash_attention_bwd_dq runs it).
+SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128), (16, 16384, 16384, 40),
+              (8, 16384, 16384, 40)]
 
 _TURNS = ("kPingPong = true;", "kPingPong = false;")
 _DKV_SECOND = """wgmma_rs<D>(dv_acc, pt[kk], T::mn_major(do_s + st * T::kTileBytes, BQ, kk));
@@ -72,7 +80,7 @@ VARIANTS = {
     "ablate_dkv_exp": [("p = ex2(fmaf(st_acc[4 * j + e]", "p = (fmaf(st_acc[4 * j + e]")],
     "ablate_dkv_second": [(_DKV_SECOND, "")],
 }
-_F32_DKV_TILES = ("kQueries = D == 32 ? 32 : 16;", "kStages = D == 32 ? 4 : (D == 64 ? 3 : 1);")
+_F32_DKV_TILES = ("kQueries = D <= 40 ? 32 : 16;", "kStages = D == 32 ? 4 : (D <= 64 ? 3 : 1);")
 _F32_TURNS = ("kPingPong = kConsumers == 2;", "kPingPong = false;")
 _3X_SS = """wgmma_tf32_ss<N>(d, a_lo, b_hi, scale_d);
   wgmma_tf32_ss<N>(d, a_hi, b_lo, 1);
@@ -83,12 +91,16 @@ _3X_RS = """wgmma_tf32_rs<N>(d, a_lo, b_hi, scale_d);
 VARIANTS.update({
     "f32_no_pingpong": [_F32_TURNS, _F32_TURNS],
     "f32_dq_bk32_d32": [("kKeys = D == 32 ? 64 : (D == 64 ? 32 : 16);", "kKeys = D == 32 ? 32 : (D == 64 ? 32 : 16);")],
-    "f32_dkv_bq64_d32": [(_F32_DKV_TILES[0], "kQueries = D == 32 ? 64 : 16;"),
-                         (_F32_DKV_TILES[1], "kStages = D == 32 ? 2 : (D == 64 ? 3 : 1);")],
+    "f32_dkv_bq64_d32": [(_F32_DKV_TILES[0], "kQueries = D == 32 ? 64 : (D == 40 ? 32 : 16);"),
+                         (_F32_DKV_TILES[1], "kStages = D == 32 ? 2 : (D <= 64 ? 3 : 1);")],
     "f32_dkv_one_consumer_d64": [
         ("kConsumers = 2; // At D=128 the owned tiles", "kConsumers = D == 64 ? 1 : 2; // At D=128 the owned tiles"),
-        (_F32_DKV_TILES[0], "kQueries = D == 32 ? 32 : (D == 64 ? 32 : 16);"),
-        (_F32_DKV_TILES[1], "kStages = D == 32 ? 4 : (D == 64 ? 2 : 1);")],
+        (_F32_DKV_TILES[0], "kQueries = D == 128 ? 16 : 32;"),
+        (_F32_DKV_TILES[1], "kStages = D == 32 ? 4 : (D == 40 ? 3 : (D == 64 ? 2 : 1));")],
+    "f32_dkv_stages2_d40": [(_F32_DKV_TILES[1], "kStages = D == 32 ? 4 : (D == 40 ? 2 : (D == 64 ? 3 : 1));")],
+    "f32_dkv_one_consumer_d40": [
+        ("kConsumers = 2; // At D=128 the owned tiles", "kConsumers = D == 40 ? 1 : 2; // At D=128 the owned tiles"),
+        (_F32_DKV_TILES[1], "kStages = D <= 40 ? 4 : (D == 64 ? 3 : 1);")],
     "f32_dq_two_consumers_d64": [
         ("kConsumers = D == 32 ? 2 : 1;", "kConsumers = D == 128 ? 1 : 2;"),
         ("kStages = D == 128 ? 2 : 3;", "kStages = D == 32 ? 3 : 2;")],
@@ -113,15 +125,22 @@ def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, dtype=torch.bfloat16,
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
     delta = (do.float() * o.float()).sum(dim=-1)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream().cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     bf16 = int(dtype == torch.bfloat16)
     parts = None if bf16 else fa.tf32_parts(q, k, v, do)
     ptrs = None if bf16 else fa._parts_arg(q, k, v, do, parts)[0]
+    # dQ at the width its kernel takes: a 40-wide fp32 head on its parts zero-padded to 64.
+    dq_d = d if bf16 else fa.kernel_head_dim(d, dtype, "dq")
+    ptrs_dq, parts_dq = (ptrs, parts) if dq_d == d else fa._parts_arg(q, k, v, do, fa.pad_dq_parts(parts, dq_d),
+                                                                       fa.DQ_PARTS, dq_d)  # parts_dq: kept alive
+    dq_full = torch.empty((b, n, dq_d), dtype=dtype, device="cuda")
+    dq = dq_full[..., :d]
     calls = {}
     for name, (fn_dq, fn_dkv) in fns.items():
-        calls[f"{name}/dq"] = lambda fn=fn_dq: fn(*args, dq.data_ptr(), b, n, m, d, bf16, scale, ptrs, stream)
+        calls[f"{name}/dq"] = lambda fn=fn_dq: fn(*args, dq_full.data_ptr(), b, n, m, dq_d, bf16, scale, ptrs_dq,
+                                                   stream)
         calls[f"{name}/dkv"] = lambda fn=fn_dkv: fn(*args, dk.data_ptr(), dv.data_ptr(), b, n, m, d, bf16, scale,
                                                      ptrs, stream)
     rec = {"shape": [b, n, m, d], "dtype": str(dtype).split(".")[-1], "max_abs_err": {},
@@ -150,19 +169,22 @@ def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, dtype=torch.bfloat16,
     return rec
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_bwd_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    libs = build_variants(VARIANTS, "flash_attn_bwd")
+    keep, timed = parse_args(sys.argv[1:] if argv is None else argv, __doc__)
+    libs = build_variants({name: edits for name, edits in VARIANTS.items() if keep(name)}, "flash_attn_bwd")
     fns = {name: (entry(lib, "mrisr_flash_attn_bwd_dq"), entry(lib, "mrisr_flash_attn_bwd_dkv"))
            for name, lib in libs.items()}
-    for shape in SHAPES:
-        print(json.dumps(sweep_shape({k: f for k, f in fns.items() if not k.startswith("f32_")}, *shape)),
-              flush=True)
-    for shape in SHAPES_F32:
-        f32 = {k: f for k, f in fns.items() if k == "design" or k.startswith("f32_")}
-        print(json.dumps(sweep_shape(f32, *shape, dtype=torch.float32)), flush=True)
+    bf16 = {k: f for k, f in fns.items() if not k.startswith("f32_")}
+    f32 = {k: f for k, f in fns.items() if k == "design" or k.startswith("f32_")}
+    for shape in filter(timed, SHAPES):
+        if len(bf16) > 1:
+            print(json.dumps(sweep_shape(bf16, *shape)), flush=True)
+    for shape in filter(timed, SHAPES_F32):
+        if len(f32) > 1:
+            print(json.dumps(sweep_shape(f32, *shape, dtype=torch.float32)), flush=True)
     print(card(), flush=True)
     return 0
 

@@ -1,6 +1,8 @@
 """Time design variants of the flash-attention forward (``csrc/flash_attn_fwd.cu``) on one GPU.
 
-Run from the repository root: ``python3 -m mrisr_torch.tools.flash_fwd_sweep``.
+Run from the repository root: ``python3 -m mrisr_torch.tools.flash_fwd_sweep``
+(``--variants 'f32_*d40'`` and ``--d 40`` narrow it to some variants, the
+design always among them, and to the shapes of some head widths).
 Each variant is the checked-in source with a few lines replaced; all are
 built at once with ``nvcc`` (the flags of ``mrisr_torch/_build.py``) under
 ``mrisr_torch/.build/sweep/flash_attn_fwd/`` and timed with CUDA events in turns (every
@@ -32,8 +34,9 @@ waves on 132 SMs, beside the chain's 8x4096 (256 CTAs), to show what the
 partly empty second wave costs at D=64.
 
 fp32 (3xTF32) variants, each an alternative to one choice of the design
-(two consumers and 64 keys a tile at D=32, one consumer and 64 keys at
-D=64, one and 32 at D=128; turns where there are two consumers):
+(two consumers and 64 keys a tile at D=32, in 4 stages, and at D=40, in 3;
+one consumer and 64 keys at D=64, one and 32 at D=128; turns where there
+are two consumers):
 
 * ``f32_no_pingpong``: no turns;
 * ``f32_one_consumer_d32``: one consumer warpgroup (64 Q rows a CTA) at D=32;
@@ -41,13 +44,18 @@ D=64, one and 32 at D=128; turns where there are two consumers):
 * ``f32_two_consumers_d64``: two consumers (128 Q rows a CTA) and 32 keys a
   tile at D=64;
 * ``f32_keys32_d64``: 32 keys a tile at D=64 (one consumer, 4 stages);
+* ``f32_one_consumer_d40``: one consumer warpgroup at D=40;
+* ``f32_stages4_d40`` / ``f32_stages2_d40``: 4 / 2 stages at D=40;
+* ``f32_keys32_d40``: 32 keys a tile at D=40;
 * ablations, timed only (their results are wrong): ``f32_ablate_1xtf32``
   (only the hi hi product of each 3xTF32 triple), ``f32_ablate_exp`` (no
   exponentials).
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import fnmatch
 import json
 import math
 import re
@@ -62,7 +70,9 @@ from mrisr_torch.ops import flash_attention as fa
 
 SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4224, 4096, 64), (8, 16384, 256, 32),
           (8, 4096, 64, 64), (8, 4096, 4096, 128)]
-SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128)]
+# The fp32 shapes: the ResDiff sites, and the SD route's fused 1024^2 chain (32 and 16 heads x images).
+SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128), (32, 16384, 16384, 40),
+              (16, 16384, 16384, 40)]
 
 _ONES = "        wgmma_rs<8>(l_acc, p[kk], make_desc(ones_s, 128, 256, 0));\n"
 _REGSUM = """#pragma unroll
@@ -118,21 +128,25 @@ VARIANTS = {
   }
 """)],
 }
-_F32_CONSUMERS = "kConsumers = D == 32 ? 2 : 1;"
+_F32_CONSUMERS = "kConsumers = D <= 40 ? 2 : 1;"
 _F32_KEYS = "kKeys = D == 128 ? 32 : 64;"
-_F32_STAGES = "kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);"
+_F32_STAGES = "kStages = D == 32 ? 4 : (D == 128 ? 2 : 3);"
 _F32_EXP = """s[4 * j] = ex2(s[4 * j] - n0);
     s[4 * j + 1] = ex2(s[4 * j + 1] - n0);
     s[4 * j + 2] = ex2(s[4 * j + 2] - n1);
     s[4 * j + 3] = ex2(s[4 * j + 3] - n1);"""
 VARIANTS.update({
     "f32_no_pingpong": [("kPingPong = kConsumers == 2;", "kPingPong = false;")],
-    "f32_one_consumer_d32": [(_F32_CONSUMERS, "kConsumers = 1;")],
-    "f32_keys32_d32": [(_F32_KEYS, "kKeys = D == 64 ? 64 : 32;")],
+    "f32_one_consumer_d32": [(_F32_CONSUMERS, "kConsumers = D == 40 ? 2 : 1;")],
+    "f32_keys32_d32": [(_F32_KEYS, "kKeys = D == 32 || D == 128 ? 32 : 64;")],
     "f32_two_consumers_d64": [(_F32_CONSUMERS, "kConsumers = D == 128 ? 1 : 2;"),
-                              (_F32_KEYS, "kKeys = D == 32 ? 64 : 32;")],
-    "f32_keys32_d64": [(_F32_KEYS, "kKeys = D == 32 ? 64 : 32;"),
-                       (_F32_STAGES, "kStages = D == 128 ? 2 : 4;")],
+                              (_F32_KEYS, "kKeys = D <= 40 ? 64 : 32;")],
+    "f32_keys32_d64": [(_F32_KEYS, "kKeys = D <= 40 ? 64 : 32;"),
+                       (_F32_STAGES, "kStages = D == 128 ? 2 : (D == 40 ? 3 : 4);")],
+    "f32_one_consumer_d40": [(_F32_CONSUMERS, "kConsumers = D == 32 ? 2 : 1;")],
+    "f32_stages4_d40": [(_F32_STAGES, "kStages = D <= 40 ? 4 : (D == 64 ? 3 : 2);")],
+    "f32_stages2_d40": [(_F32_STAGES, "kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);")],
+    "f32_keys32_d40": [(_F32_KEYS, "kKeys = D == 40 || D == 128 ? 32 : 64;")],
     # Ablations, for where the time goes (wrong results: timed only).
     "f32_ablate_1xtf32": [
         ("hopper.cuh", """for (int kk = 0; kk < K; ++kk) wgmma_tf32_ss<N>(d, a(kk, 1), b(kk, 0), kk > 0);
@@ -263,17 +277,33 @@ def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, dtype=torch.bfloat16,
     return rec
 
 
-def main() -> int:
+def parse_args(argv, doc: str):
+    """``--variants`` (shell patterns; ``design`` is always kept) and ``--d`` (head widths) narrow a sweep."""
+    parser = argparse.ArgumentParser(description=doc.splitlines()[0])
+    parser.add_argument("--variants", default="*", help="comma-separated shell patterns of variant names")
+    parser.add_argument("--d", default="", help="comma-separated head widths of the shapes to time (all if empty)")
+    args = parser.parse_args(argv)
+    patterns = args.variants.split(",")
+    widths = {int(x) for x in args.d.split(",") if x}
+    keep = lambda name: name == "design" or any(fnmatch.fnmatch(name, p) for p in patterns)  # noqa: E731
+    return keep, (lambda shape: not widths or shape[3] in widths)
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_fwd_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    fns = {name: entry(lib, "mrisr_flash_attn_fwd") for name, lib in build_variants(VARIANTS).items()}
-    for shape in SHAPES:
-        print(json.dumps(sweep_shape({k: f for k, f in fns.items() if not k.startswith("f32_")}, *shape)),
-              flush=True)
-    for shape in SHAPES_F32:
-        f32 = {k: f for k, f in fns.items() if k == "design" or k.startswith("f32_")}
-        print(json.dumps(sweep_shape(f32, *shape, dtype=torch.float32)), flush=True)
+    keep, timed = parse_args(sys.argv[1:] if argv is None else argv, __doc__)
+    variants = {name: edits for name, edits in VARIANTS.items() if keep(name)}
+    fns = {name: entry(lib, "mrisr_flash_attn_fwd") for name, lib in build_variants(variants).items()}
+    bf16 = {k: f for k, f in fns.items() if not k.startswith("f32_")}
+    f32 = {k: f for k, f in fns.items() if k == "design" or k.startswith("f32_")}
+    for shape in filter(timed, SHAPES):
+        if len(bf16) > 1:
+            print(json.dumps(sweep_shape(bf16, *shape)), flush=True)
+    for shape in filter(timed, SHAPES_F32):
+        if len(f32) > 1:
+            print(json.dumps(sweep_shape(f32, *shape, dtype=torch.float32)), flush=True)
     print(card(), flush=True)
     return 0
 

@@ -1,9 +1,10 @@
 """Head-width padding, the fp32 flash forward's 3xTF32 arithmetic and GroupNorm+SiLU's cluster plan, on the CPU.
 
-* The flash kernels exist for D in (32, 64, 128); the wrappers zero-pad a
-  narrower head to the next of them and slice the result back.  The padded
-  plain path is held to the unpadded one and to JAX's Pallas kernels
-  (interpret mode), which pad D themselves.
+* The flash kernels exist for D in (32, 64, 128), and the fp32 forward and
+  dK/dV kernels also for 40; the wrappers zero-pad a narrower head to the
+  next width its kernel takes and slice the result back.  The padded plain
+  path is held to the unpadded one and to JAX's Pallas kernels (interpret
+  mode), which pad D themselves.
 * The fp32 forward kernel computes in 3xTF32 on the tensor cores; its
   arithmetic, emulated here, is held to JAX's fp32 Pallas forward at the
   unchanged ``chip_smoke.FLASH_TOL["float32"]``.
@@ -48,10 +49,53 @@ def _normal(rng, *shape):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d, want", [(1, 32), (16, 32), (32, 32), (33, 64), (40, 64), (64, 64), (80, 128),
-                                     (128, 128)])
-def test_kernel_head_dim_is_the_next_kernel_width(d, want):
-    assert t_flash.kernel_head_dim(d) == want
+_BF16, _FP32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("d, dtype, kernel, want", [
+    *(pytest.param(d, _BF16, "fwd", want, id=f"{d}-{want}")  # bf16 steps K by 16 columns: 40 pads to 64
+      for d, want in [(1, 32), (16, 32), (32, 32), (33, 64), (40, 64), (64, 64), (80, 128), (128, 128)]),
+    pytest.param(40, _FP32, "fwd", 40, id="40-float32-fwd-40"),  # tf32 steps K by 8: SD1.5's heads as they are
+    pytest.param(33, _FP32, "fwd", 40, id="33-float32-fwd-40"),
+    pytest.param(40, _FP32, "dkv", 40, id="40-float32-dkv-40"),
+    pytest.param(36, _FP32, "dkv", 40, id="36-float32-dkv-40"),
+    pytest.param(40, _FP32, "dq", 64, id="40-float32-dq-64"),  # B2a keeps (32, 64, 128): its parts are padded
+    pytest.param(40, _BF16, "dkv", 64, id="40-bfloat16-dkv-64"),
+    pytest.param(41, _FP32, "fwd", 64, id="41-float32-fwd-64"),
+    pytest.param(16, _FP32, "dkv", 32, id="16-float32-dkv-32"),
+])
+def test_kernel_head_dim_is_the_next_kernel_width(d, dtype, kernel, want):
+    """The width each kernel takes a head at, by dtype: the next of its ``KERNEL_HEAD_DIMS``."""
+    assert t_flash.kernel_head_dim(d, dtype, kernel) == want
+    assert want in t_flash.KERNEL_HEAD_DIMS[kernel, dtype]
+
+
+@pytest.mark.parametrize("kernel, dtype, ok", [("fwd", _FP32, True), ("dkv", _FP32, True), ("dq", _FP32, False),
+                                               ("fwd", _BF16, False), ("dkv", _BF16, False)])
+def test_kernel_inputs_take_40_wide_heads_where_the_kernel_does(kernel, dtype, ok):
+    """The launch check lets a 40-wide head reach the fp32 forward and dK/dV kernels only."""
+    tensors = {n: torch.zeros(1, 8, 40, dtype=dtype) for n in ("q", "k", "v")}
+    if ok:
+        t_flash._check_kernel_inputs(40, 1, kernel, **tensors)
+    else:
+        with pytest.raises(ValueError, match="D in"):
+            t_flash._check_kernel_inputs(40, 1, kernel, **tensors)
+
+
+def test_kernel_head_dims_match_the_sources():
+    """``KERNEL_HEAD_DIMS`` is what the C entry points dispatch: the forward's launch_bf16 / launch_f32
+    cases, the backward's launch_dq / launch_dkv cases (dK/dV's D=40 refusing bf16 at compile time)."""
+    import re
+
+    fwd = (CSRC / "flash_attn_fwd.cu").read_text()
+    bwd = (CSRC / "flash_attn_bwd.cu").read_text()
+    cases = lambda src, fn: tuple(sorted(int(x) for x in re.findall(rf"case (\d+): return \(int\){fn}<\1>", src)))  # noqa: E731
+    assert cases(fwd, "launch_bf16") == t_flash.KERNEL_HEAD_DIMS["fwd", _BF16]
+    assert cases(fwd, "launch_f32") == t_flash.KERNEL_HEAD_DIMS["fwd", _FP32]
+    assert cases(bwd, "launch_dq") == t_flash.KERNEL_HEAD_DIMS["dq", _FP32] == t_flash.KERNEL_HEAD_DIMS["dq", _BF16]
+    assert cases(bwd, "launch_dkv") == t_flash.KERNEL_HEAD_DIMS["dkv", _FP32]
+    assert "if constexpr (D == 40) {\n      return cudaErrorInvalidValue;  // bf16" in bwd
+    assert tuple(d for d in cases(bwd, "launch_dkv") if d != 40) == t_flash.KERNEL_HEAD_DIMS["dkv", _BF16]
 
 
 @pytest.mark.parametrize("d", [129, 160, 0])
@@ -163,6 +207,10 @@ def _within_fwd(o, lse, want_o, want_lse, tol):
     pytest.param(2, 37, 5, 32, 64, False, id="ragged-2-37-5-32"),
     pytest.param(2, 130, 70, 128, 32, False, id="ragged-2-130-70-128"),
     pytest.param(2, 100, 60, 64, 64, True, id="extreme-2-100-60-64"),
+    # SD1.5's 40-wide heads, unpadded (5 k-steps, P V at N = 40), at the padding test's shape (JAX's programs
+    # are those it runs)
+    pytest.param(2, 130, 70, 40, 64, False, id="ragged-2-130-70-40"),
+    pytest.param(2, 130, 70, 40, 64, True, id="extreme-2-130-70-40"),
 ])
 def test_tf32_forward_emulation_meets_the_fp32_limits_against_jax(b, n, m, d, bk, extreme):
     """The fp32 forward kernel's arithmetic (3xTF32 with the tensor cores' truncation, lo lo dropped, the

@@ -447,6 +447,9 @@ def _within(got, want, tol):
     pytest.param(2, 37, 5, 32, False, id="ragged-2-37-5-32"),
     pytest.param(2, 130, 70, 128, False, id="ragged-2-130-70-128"),
     pytest.param(2, 100, 60, 64, True, id="extreme-2-100-60-64"),
+    # SD1.5's 40-wide heads: dK/dV at D = 40 (dV, dK at N = 40); dQ on its parts padded to 64 adds zeros only
+    pytest.param(2, 130, 70, 40, False, id="ragged-2-130-70-40"),
+    pytest.param(2, 130, 70, 40, True, id="extreme-2-130-70-40"),
 ])
 def test_tf32_backward_emulation_meets_the_fp32_limits_against_jax(b, n, m, d, extreme):
     """The fp32 kernels' arithmetic (3xTF32 with the tensor cores' truncation, lo lo dropped, the permuted
@@ -514,6 +517,38 @@ def test_tf32_parts_match_numpy(n, m, d):
                 g8, rest = divmod(r, 8)
                 want[:, :, 8 * g8 + 4 * (rest % 2) + rest // 2] = src[:, r, :]
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,m", [(130, 70), (37, 5)])
+def test_dq_parts_padded_to_64_are_the_parts_of_the_padded_inputs(n, m):
+    """B2a takes no 40-wide head: ``pad_dq_parts`` widens the parts it reads (``DQ_PARTS``) of 40-wide inputs
+    to 64, bit for bit ``tf32_parts`` of the inputs zero-padded to 64, so dQ is what the padded route gives."""
+    rng = np.random.default_rng(33)
+    q, k, v, do = (torch.from_numpy((rng.standard_normal((2, s, 40)) * 2.0 ** rng.integers(-4, 5, (2, s, 40)))
+                                    .astype(np.float32)) for s in (n, m, m, n))
+    padded = t_flash.pad_dq_parts(t_flash.tf32_parts(q, k, v, do), 64)
+    want = t_flash.tf32_parts(*(t_flash._pad_head_dim(t, 64) for t in (q, k, v, do)))
+    assert tuple(padded) == t_flash.DQ_PARTS
+    for name in t_flash.DQ_PARTS:
+        assert torch.equal(padded[name].view(torch.int32), want[name].view(torch.int32)), name
+    assert t_flash.pad_dq_parts(padded, 64)["kt"] is padded["kt"]  # already 64 wide: kept
+    t_flash._check_parts(q, k, padded, t_flash.DQ_PARTS, 64)
+    with pytest.raises(ValueError, match="part q_hi"):
+        t_flash._check_parts(q, k, padded, t_flash.DQ_PARTS)  # at q's own width, 40
+
+
+def test_parts_arg_passes_null_for_parts_the_kernel_does_not_read():
+    """The C interface's ``parts``: every pointer in ``TF32_PARTS`` order, null where the kernel reads no such
+    part (dQ: the transposed Q and dO; dK/dV: the transposed K), so dQ's padded parts need no Q^T, dO^T."""
+    q = torch.zeros(1, 8, 40)
+    parts = t_flash.tf32_parts(q, q, q, q)
+    for names, d, given in ((t_flash.DQ_PARTS, 64, t_flash.pad_dq_parts(parts, 64)), (t_flash.DKV_PARTS, 40, parts),
+                            (t_flash.TF32_PARTS, 40, parts)):
+        ptrs, kept = t_flash._parts_arg(q, q, q, q, given, names, d)
+        assert kept is given and len(ptrs) == len(t_flash.TF32_PARTS)
+        assert list(ptrs) == [given[x].data_ptr() if x in names else None for x in t_flash.TF32_PARTS]
+    assert set(t_flash.TF32_PARTS) - set(t_flash.DQ_PARTS) == {"qt", "qt_lo", "dot", "dot_lo"}
+    assert set(t_flash.TF32_PARTS) - set(t_flash.DKV_PARTS) == {"kt", "kt_lo"}
 
 
 def _f32_parts(n=8, m=8, d=32, **bad):
