@@ -205,14 +205,14 @@ FLASH_CASES = [  # (case, B, N, M, D): the chain's two flash sites, both profile
 FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ragged", 3, 130, 70, 128),
                 # fewer queries than one CTA and keys than one tile; keys ending mid-tile at B >= 2, D=64
                 ("ragged", 2, 37, 5, 32), ("ragged", 2, 300, 1000, 64),
-                # SD1.5's 40-wide heads (fp32 B1 and B2b take them unpadded, with a tail box a row): N not a
+                # SD1.5's 40-wide heads (fp32 B1, B2a and B2b take them unpadded, with a tail box a row): N not a
                 # multiple of 128, M not one of 64, and M below one tile
                 ("ragged", 3, 130, 70, 40), ("ragged", 2, 37, 5, 40)]
 # Ragged shapes where every score is below -100 (extreme_qk): a zero key past
 # M would score 0 and get p = exp(-lse), which overflows.
 FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32), ("extreme", 2, 300, 1000, 40)]
 # Head widths the kernels do not have: the wrappers pad D to 32, and 36 to 40 (fp32) or 64 (bf16); bf16 pads
-# 40 to 64, and so does fp32 dQ (its parts).
+# 40 to 64.
 FLASH_PAD = [("pad", 2, 4096, 4096, 16), ("pad", 2, 1000, 777, 40), ("pad", 2, 1000, 777, 36)]
 EXTREME_MEAN_SCORE, EXTREME_NOISE = -130.0, 2.0
 # (case, shape, groups): the 13 shapes of the UNet's 29 ConvBlock heads at bs 8
@@ -433,8 +433,8 @@ def phase_build(torch):
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
     # Every flash kernel -- bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
-    # D = 32, 64, 128, and the fp32 forward and dK/dV at D = 40 -- is built on
-    # wgmma: the SASS of each of the 20 must hold HGMMA instructions.
+    # D = 32, 64, 128, and the fp32 forward, dQ and dK/dV at D = 40 -- is built
+    # on wgmma: the SASS of each of the 21 must hold HGMMA instructions.
     hgmma = {k: n for lib in flash_attention.LIBRARIES
              for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items()
              if k.startswith(("flash_fwd_", "flash_bwd_"))}
@@ -442,7 +442,7 @@ def phase_build(torch):
           "kernels_with_spills": spills, "flash_hgmma": hgmma, "ptxas": ptxas})
     # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
     serialized = [ln for lines in ptxas.values() for ln in lines if "Performance Loss" in ln]
-    if len(hgmma) != 20 or not all(hgmma.values()) or any(spills.values()) or serialized:
+    if len(hgmma) != 21 or not all(hgmma.values()) or any(spills.values()) or serialized:
         raise AssertionError(f"build: HGMMA counts {hgmma}, kernels with spills {spills}, "
                              f"ptxas performance notes {serialized}")
 
@@ -519,31 +519,36 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
     # No atomics: each block writes only the rows it owns, so a second call gives the same bits.
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
     delta = (do.float() * o.float()).sum(dim=-1)
-    # A head B2b takes but B2a does not (fp32 D=40): B2a reads its parts zero-padded to its width, which must
-    # give the dQ of the zero-padded inputs (their own parts) bit for bit.
-    dq_d, dkv_d = fa.kernel_head_dim(d, dtype, "dq"), fa.kernel_head_dim(d, dtype, "dkv")
+    # A head that reaches B2a at D=40 (fp32): its dQ against the D=64 kernel's on the inputs zero-padded to
+    # 64, the route of earlier trees, within the same limit (another tile of keys sums in another order).
+    kd = fa.kernel_head_dim(d, dtype, "dq")  # dK/dV's too
     padded_dq = None
-    if dq_d != dkv_d:
-        padded = [fa._pad_head_dim(t, dq_d) for t in (q, k, v, do)]
-        padded_dq = torch.equal(fa.flash_attention_bwd_dq(*padded, lse, delta, scale)[..., :d], got[0])
+    if kd == 40:
+        padded = [fa._pad_head_dim(t, 64) for t in (q, k, v, do)]
+        padded_dq = fa.flash_attention_bwd_dq(*padded, lse, delta, scale)[..., :d]
     torch.cuda.synchronize()
     deterministic = all(torch.equal(a, b_) for a, b_ in zip(got, again))
     name = str(dtype).split(".")[-1]
     tol = FLASH_BWD_TOL[name]
-    errs, ok = {}, deterministic and padded_dq is not False
-    for key, g, w in zip(("dq", "dk", "dv"), got, want):
-        ref = w.float()
+
+    def error(g, ref):
+        ref = ref.float()
         rms_ref = float(ref.square().mean().sqrt())
         err = (g.float() - ref).abs()
         limit = tol["atol_rms"] * rms_ref + tol["rtol"] * ref.abs()
-        errs[key] = {"max_abs_err": float(err.max()), "err_over_limit": float((err / limit).max()),
-                     "ref_rms": rms_ref, "rms_err_rel": float(err.square().mean().sqrt()) / rms_ref}
-        ok = (ok and bool(torch.isfinite(g).all()) and errs[key]["err_over_limit"] <= 1.0
-              and errs[key]["rms_err_rel"] <= tol["rms_rel"])
+        rec = {"max_abs_err": float(err.max()), "err_over_limit": float((err / limit).max()),
+               "ref_rms": rms_ref, "rms_err_rel": float(err.square().mean().sqrt()) / rms_ref}
+        return rec, bool(torch.isfinite(g).all()) and rec["err_over_limit"] <= 1.0 and rec["rms_err_rel"] <= tol["rms_rel"]
+
+    errs, ok = {}, deterministic
+    for key, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[key], within = error(g, w)
+        ok = ok and within
     base = {"phase": "kernel", "case": case, "dtype": name, "shape": [b, n, m, d], "tolerance": tol,
-            "deterministic": deterministic, "kernel_d": {"dq": dq_d, "dkv": dkv_d}, "ok": ok}
+            "deterministic": deterministic, "kernel_d": kd, "ok": ok}
     if padded_dq is not None:
-        base["dq_equals_padded_route"] = padded_dq
+        base["dq_vs_padded_route"], within = error(got[0], padded_dq)
+        base["ok"] = ok = ok and within
     recs = {"flash_attention_bwd_dq": {**base, "kernel": "flash_attention_bwd_dq", "errors": {"dq": errs["dq"]},
                                        "max_abs_err": errs["dq"]["max_abs_err"]},
             "flash_attention_bwd_dkv": {**base, "kernel": "flash_attention_bwd_dkv",
@@ -556,18 +561,12 @@ def check_flash_bwd(torch, F, dtype, case, b, n, m, d, timed):
         # Each input read once, each output written once; three products for dQ, four for dK/dV.
         set_bounds(dq_rec, (3 * b * n * d + 2 * b * m * d) * size + 8 * b * n, 6.0 * b * n * m * d, bf16)
         set_bounds(dkv_rec, (2 * b * n * d + 4 * b * m * d) * size + 8 * b * n, 8.0 * b * n * m * d, bf16)
-        # The kernels alone, on heads zero-padded to the kernels' width as the pair pads them (bf16 D=40 -> 64;
-        # fp32 dQ's parts 40 -> 64); fp32 on 3xTF32 operands made once (the pair makes its own).  The bounds
-        # count the unpadded work.
-        qp, kp, vp, dop = (fa._pad_head_dim(t, dkv_d) for t in (q, k, v, do))
+        # The kernels alone, on heads zero-padded to the kernels' width as the pair pads them (bf16 D=40 -> 64);
+        # fp32 on 3xTF32 operands made once (the pair makes its own).  The bounds count the unpadded work.
+        qp, kp, vp, dop = (fa._pad_head_dim(t, kd) for t in (q, k, v, do))
         parts = None if bf16 else fa.tf32_parts(qp, kp, vp, dop)
-
-        def prep():  # the pair's 3xTF32 operands: every part, and dQ's padded where its kernel is wider
-            made = fa.tf32_parts(qp, kp, vp, dop)
-            return made if dq_d == dkv_d else (made, fa.pad_dq_parts(made, dq_d))
-
-        dq_parts = parts if bf16 or dq_d == dkv_d else fa.pad_dq_parts(parts, dq_d)
-        run_dq = lambda: fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta, scale, dq_parts)  # noqa: E731
+        prep = lambda: fa.tf32_parts(qp, kp, vp, dop)  # noqa: E731  (the pair's 3xTF32 operands)
+        run_dq = lambda: fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta, scale, parts)  # noqa: E731
         run_dkv = lambda: fa.flash_attention_bwd_dkv(qp, kp, vp, dop, lse, delta, scale, parts)  # noqa: E731
         for rec, run, kernel_part in ((dq_rec, run_dq, "flash_bwd_dq"), (dkv_rec, run_dkv, "flash_bwd_dkv")):
             rec["ms"] = cuda_ms(torch, run)
@@ -787,7 +786,8 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
     do not overlap).  Its idle share is taken against ``chain_ms``, the same
     run timed without the profiler, and against the profiled run's own wall
     time.  ``kernel_events`` counts the device events whose name holds each
-    kernel's part (``KERNEL_PARTS``); ``flash_kernels`` gives each flash
+    kernel's part (``KERNEL_PARTS``) and ``kernel_ms`` sums their device ms;
+    ``flash_kernels`` gives each flash
     kernel's device ms and count by its name and head width
     (``flash_fwd_f32_kernel<40>``).  The tracer's own records are read
     (``kineto_results.events()``), not ``key_averages()``: its Python event
@@ -830,6 +830,7 @@ def profile_chain(torch, run, chain_ms=None, top=12, ranges=()):
                  "profiled_chain_ms": profiled_ms, "profiled_idle_share": 1.0 - busy_ms / profiled_ms,
                  "device_events": sum(r[2] for r in rows), "graph_launches": graph_launches,
                  "kernel_events": {name: sum(n for k, _, n in rows if part in k) for name, part in KERNEL_PARTS.items()},
+                 "kernel_ms": {name: sum(ms for k, ms, _ in rows if part in k) for name, part in KERNEL_PARTS.items()},
                  "flash_kernels": flash_kernels(rows),
                  "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]}
 
@@ -1718,9 +1719,9 @@ LATENT_FP32_SIZE, LATENT_FP32_RMS_REL = 576, 1e-4
 # runs.  (Before the fused towers: 64 = 8 images x 8 heads.)
 FLASH_SD = ("sd_fused", 32, 16384, 16384, 40)
 FLASH_SD_UP = ("sd_up", 16, 16384, 16384, 40)
-# B2a/B2b at the SD route, as the fused 1024^2 training step at bs 1 runs them: 2 lanes x 8 heads, fp32 (B2b
-# at D = 40, B2a on its parts padded to 64), at its 2 down-tower sites; ``FLASH_SD_BWD_UP`` at its 3 up-tower
-# ones (one image's 8 heads).  (Before the fused towers: one image's 8 heads.)
+# B2a/B2b at the SD route, as the fused 1024^2 training step at bs 1 runs them: 2 lanes x 8 heads, fp32 at
+# D = 40 (both kernels unpadded), at its 2 down-tower sites; ``FLASH_SD_BWD_UP`` at its 3 up-tower ones (one
+# image's 8 heads).  (Before the fused towers: one image's 8 heads.)
 FLASH_SD_BWD = ("sd_fused", 16, 16384, 16384, 40)
 FLASH_SD_BWD_UP = ("sd_up", 8, 16384, 16384, 40)
 
@@ -1833,7 +1834,7 @@ def latent_pipeline(torch, unet, side, vae, prompt, size, adapter=False, fused=N
 def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=False, eager_too=True):
     """One latent chain configuration, graphed (and eagerly): launch counts, graph = eager bitwise from one
     generator, wall and CUDA-event ms, peak memory, one traced chain of each mode.  -> (launches of the traced
-    replay, B3 head shapes of the eager chain)."""
+    replay, B3 head shapes of the eager chain, the replay's trace)."""
     pipe, expect = latent_pipeline(torch, unet, side, vae, prompt, size, adapter)
     mode = pipe.mode
     lr, noise = latent_inputs(torch, pipe, batch, size)
@@ -1902,7 +1903,7 @@ def latent_chain(torch, unet, side, vae, prompt, case, batch, size, adapter=Fals
               **eager_prof})
     if bad:
         raise AssertionError(f"{what}: graph and eager disagree, or launch counts differ from {expect}: {rec}")
-    return counts, heads
+    return counts, heads, graph_prof
 
 
 def on_host_thread(torch, fn, no_grad=True):
@@ -1982,11 +1983,15 @@ def phase_latent(torch):
     unet, cn, vae = latent_modules(torch, torch.bfloat16)
     heads = None
     for case, batch, size in LATENT_CHAINS:  # eagerly too at 512^2 only (the run's time limit)
-        counts, seen = latent_chain(torch, unet, cn, vae, prompt, case, batch, size, eager_too=size == 512)
+        counts, seen, prof = latent_chain(torch, unet, cn, vae, prompt, case, batch, size, eager_too=size == 512)
         if heads is None and seen:  # by shape, whatever dtype each ran in: each is checked in both below
             heads = {}
             for (shape, groups, eps, _), calls in seen.items():
                 heads[shape, groups, eps] = heads.get((shape, groups, eps), 0) + calls
+            # B3 inside the graphed chain whose eager twin gave the heads: its device time in the traced replay.
+            b3_graph = {"device_ms_a_chain": prof["kernel_ms"]["group_norm_silu"],
+                        "launches_in_trace": prof["kernel_events"]["group_norm_silu"],
+                        "launches_a_chain": counts["group_norm_silu"], "chain": f"controlnet {size}^2 bs {batch}"}
         add_counts(totals, counts)
         torch.cuda.empty_cache()
     del cn
@@ -1994,7 +1999,7 @@ def phase_latent(torch):
     from mrisr_torch.models.adapter import T2IAdapter
 
     adapter = T2IAdapter().to(torch.bfloat16)
-    counts, _ = latent_chain(torch, unet, adapter, vae, prompt, "512", 8, 512, adapter=True, eager_too=False)
+    counts, _, _ = latent_chain(torch, unet, adapter, vae, prompt, "512", 8, 512, adapter=True, eager_too=False)
     add_counts(totals, counts)
     del unet, vae, adapter
     torch.cuda.empty_cache()
@@ -2009,9 +2014,11 @@ def phase_latent(torch):
                   "dtype": rec["dtype"], "calls_in_512_eager_chain": calls})
             for k in chain:
                 chain[k] += calls * rec[k]
-        # Each head's time times its calls in a 512^2 chain, summed: B3's share of a chain in this dtype.
+        # Each head's time times its calls in a 512^2 chain, summed: B3's share of a chain in this dtype.  Beside
+        # it, B3's device time in the graphed chain's traced replay (the same heads, launched from the graph).
         emit({"phase": "latent_head_totals", "dtype": str(dtype).split(".")[-1], "heads": len(heads),
-              "calls_a_chain": sum(heads.values()), **{f"{k}_a_chain": v for k, v in chain.items()}})
+              "calls_a_chain": sum(heads.values()), **{f"{k}_a_chain": v for k, v in chain.items()},
+              "graph_trace": b3_graph})
         check_flash(torch, F, dtype, *FLASH_SD, timed=True)
     check_flash(torch, F, torch.float32, *FLASH_SD_UP, timed=True)
     return totals
@@ -2168,6 +2175,10 @@ def latent_train_case(torch, unet, cn, vae, prompt, empty, mode, size, batch, ca
           "step_ms": step_ms, "replays": LT_TRACED_REPLAYS, "expected_launches_a_step": expect, "launches": counts,
           "launches_from": f"the graph's kernel nodes times the graph launches in a trace of {LT_TRACED_REPLAYS} "
                            "replays", **prof})
+    # The SD route's flash kernels run at SD1.5's head width: every one in the trace at D = 40, none padded.
+    padded = [k for k in prof["flash_kernels"] if not k.endswith("<40>")]
+    if padded:
+        raise AssertionError(f"{what}: flash kernels at another head width than 40: {prof['flash_kernels']}")
     return counts, heads
 
 

@@ -144,20 +144,34 @@
 //     product and 1.75 ms with one tf32 pass; without exponentials it is
 //     within noise.  The second-stage products (m64nDk8 with D = 32, three
 //     passes a k-step) set the time, not the exp unit.
-//   * dK/dV at D=40: SD1.5's heads (the latent training step's self-attention
-//     at 128^2 latents).  Bound at the fused 1024^2 step's 16x16384^2x40: 8 B
-//     N M D = 1.37 TFLOP -> 8.33 ms 3xTF32 (8x: 4.16).  No pad to 64: the
-//     D-wide tiles (K, V owned; Q, dO walked) are a 128-byte box and a 32-byte
-//     tail box a row, as in the forward, so S^T and dP^T take 5 k-steps; dV
-//     and dK run at wgmma N = 40 over Q^T / dO^T tiles of 40 rows of 32
-//     queries (D=32's layout).  D=32's shape: two consumers of 64 K/V rows
-//     taking turns, BQ = 32, 3 stages (the owned parts take 80 KB, a stage
-//     40 KB; four do not fit).  Sweep at 16 / 8 x 16384^2 x 40: 2 stages 57-61
-//     % slower, one consumer (4 stages) 16-24 %, no turns 6-8 %; BQ = 16 would
+//   * D=40: SD1.5's heads (the latent training step's self-attention at 128^2
+//     latents).  No pad to 64: the D-wide tiles (Q, dO, K, V) are a 128-byte
+//     box and a 32-byte tail box a row, as in the forward, so S, dP (S^T,
+//     dP^T) take 5 k-steps; the second-stage products run at wgmma N = 40
+//     over transposed tiles of 40 rows (K^T for dQ, Q^T and dO^T for dK/dV),
+//     which need no tail box.  Bounds at the fused 1024^2 step's
+//     16x16384^2x40: dK/dV 8 B N M D = 1.37 TFLOP -> 8.33 ms 3xTF32, dQ 6 B N
+//     M D -> 6.25 ms (8x: 4.16, 3.12).
+//   * dK/dV at D=40 has D=32's shape: two consumers of 64 K/V rows taking
+//     turns, BQ = 32, 3 stages (the owned parts take 80 KB, a stage 40 KB;
+//     four do not fit).  Sweep at 16 / 8 x 16384^2 x 40: 2 stages 57-61 %
+//     slower, one consumer (4 stages) 16-24 %, no turns 6-8 %; BQ = 16 would
 //     put the 2560-byte D-wide tiles off their 1024-byte alignment.  One tf32
 //     pass takes 9.0 ms of 14.2-14.7 and no dV, dK products 7.8: those two
-//     products at N = 40 are about half the time.  dQ keeps D=64: the wrapper
-//     pads the parts it reads (flash_attention.py::pad_dq_parts).
+//     products at N = 40 are about half the time.
+//   * dQ at D=40 keeps 20 accumulators a thread for dQ and 20 for its tile's
+//     part.  Two consumers (128 Q rows: 80 KB of owned parts) leave room for
+//     two stages of BK = 64 (60 KB each: K, K lo, K^T, K^T lo, V, V lo) or
+//     three or four of BK = 32; one consumer (40 KB owned) for three stages
+//     of 64 keys in 226 KB.  BK = 40 or 48 would put the D-wide tiles off
+//     their 1024-byte alignment.  Sweep (ms a call in two slots, 16 / 8 x
+//     16384^2 x 40; PERF.md): one consumer, 64 keys, 3 stages (taken) 11.19,
+//     11.20 / 5.50, 5.53; two consumers with 64 keys in 2 stages 12.15, 12.30
+//     / 6.07, 6.22; with 32 keys in 3 stages 11.47, 10.76 / 5.68, 5.50, in 4
+//     10.83, 11.56 / 5.65, 5.38 (within noise of one consumer, which needs no
+//     turns).  Without the dQ product 8.76 / 4.39 and with one tf32 pass 8.79
+//     / 4.40: the score pair and the exponentials between them set most of
+//     the time, not the tensor cores' rate.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -615,15 +629,18 @@ constexpr int kTransposePad = 64;
 // fourth time transposed: the owned tiles take 16 bytes a row and column.
 template <int D>
 struct DqF32Tiles {
-  using Rows = SwizzledRows<D, 4>;  // Q, dO, K, V tiles: D columns
+  using Rows = SwizzledRows<D, 4>;  // Q, dO, K, V tiles: D columns (at D=40 a 128-byte box and a 32-byte tail)
   // At D=64 one consumer (64 Q rows a CTA, 3 stages) was 17-20 % faster than
-  // two (sweep); at D=128 the owned tiles leave room for 64 rows only.
+  // two (sweep); at D=128 the owned tiles leave room for 64 rows only.  At
+  // D=40 two consumers leave room for two stages of 64 keys (9-13 % slower)
+  // or 3-4 of 32 (within noise); one consumer takes 64 keys in 3 stages
+  // (226 KB).
   static constexpr int kConsumers = D == 32 ? 2 : 1;
   static constexpr int kRowsQ = 64 * kConsumers;
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = 240;
-  static constexpr int kKeys = D == 32 ? 64 : (D == 64 ? 32 : 16);  // BK: keys per K/V tile
+  static constexpr int kKeys = D <= 40 ? 64 : (D == 64 ? 32 : 16);  // BK: keys per K/V tile
   using RowsT = SwizzledRows<kKeys, 4>;  // K^T tiles: BK columns
   // The loop issues tile t's scores before it releases tile t - 1: two stages at least.
   static constexpr int kStages = D == 128 ? 2 : 3;
@@ -1169,19 +1186,23 @@ template <int D>
 cudaError_t launch_dq(const Args& a, void* dq, bool bf16) {
   const float sl2 = a.scale * kLog2e;
   if (bf16) {
-    using T = DqTiles<D>;
-    CUtensorMap tq, tk, tv, tdo;
-    if (!encode_map(&tq, a.q, a.B, a.N, D, T::kBox, T::kRowsQ) ||
-        !encode_map(&tdo, a.dout, a.B, a.N, D, T::kBox, T::kRowsQ) ||
-        !encode_map(&tk, a.k, a.B, a.M, D, T::kBox, T::kKeys) ||
-        !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kKeys)) {
-      return cudaErrorInvalidValue;
+    if constexpr (D == 40) {
+      return cudaErrorInvalidValue;  // bf16 steps K by 16 columns: no bf16 kernel at D=40
+    } else {
+      using T = DqTiles<D>;
+      CUtensorMap tq, tk, tv, tdo;
+      if (!encode_map(&tq, a.q, a.B, a.N, D, T::kBox, T::kRowsQ) ||
+          !encode_map(&tdo, a.dout, a.B, a.N, D, T::kBox, T::kRowsQ) ||
+          !encode_map(&tk, a.k, a.B, a.M, D, T::kBox, T::kKeys) ||
+          !encode_map(&tv, a.v, a.B, a.M, D, T::kBox, T::kKeys)) {
+        return cudaErrorInvalidValue;
+      }
+      static const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
+      if (err != cudaSuccess) return err;
+      const dim3 grid((a.N + T::kRowsQ - 1) / T::kRowsQ, a.B);
+      flash_bwd_dq_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
+          tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.N, a.M, sl2, a.scale);
     }
-    static const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.N + T::kRowsQ - 1) / T::kRowsQ, a.B);
-    flash_bwd_dq_bf16_kernel<D><<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.N, a.M, sl2, a.scale);
   } else {
     using T = DqF32Tiles<D>;
     F32Maps m;
@@ -1239,7 +1260,7 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16) {
 // q, dout, dq [B,N,D]; k, v, dk, dv [B,M,D] (all contiguous, same dtype, 16-byte
 // aligned: the kernels read q, k, v, dout through TMA tensor maps); lse, delta
 // [B,N] fp32.  is_bf16 selects bf16 (1) or fp32 (0); D is 32, 64 or 128, and
-// for the fp32 dK/dV kernel also 40.  parts: for fp32, a host array of the
+// for the fp32 kernels also 40.  parts: for fp32, a host array of the
 // device pointers of enum Part (made by flash_attention.py::tf32_parts, each
 // contiguous and 16-byte aligned; the kernels read these, not q, k, v, dout),
 // where the transposed copies the kernel does not read (dQ: Q^T, dO^T; dK/dV:
@@ -1254,6 +1275,7 @@ extern "C" int mrisr_flash_attn_bwd_dq(const void* q, const void* k, const void*
                parts, B, N, M, scale, static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 32: return (int)launch_dq<32>(a, dq, is_bf16 != 0);
+    case 40: return (int)launch_dq<40>(a, dq, is_bf16 != 0);
     case 64: return (int)launch_dq<64>(a, dq, is_bf16 != 0);
     case 128: return (int)launch_dq<128>(a, dq, is_bf16 != 0);
   }

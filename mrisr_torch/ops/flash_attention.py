@@ -19,16 +19,13 @@ On a CPU tensor each runs its plain version (``flash_attention_plain``,
 ``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
 (bf16 or float32; the bf16 forward takes scale > 0) or raises.  The head
 widths each kernel takes (``KERNEL_HEAD_DIMS``): D in {32, 64, 128} in bf16,
-whose k-step is 16 columns, and for the dQ kernel in float32; D in {32, 40,
-64, 128} for the float32 forward and dK/dV kernels (tf32's k-step is 8
-columns, so SD1.5's 40-wide heads take no pad).  A narrower head is
-zero-padded to the next width its kernel takes and the result sliced back
-(exact: zero columns add nothing to q k^T, to o, or to delta); in float32 a
-40-wide head reaches the dQ kernel as its 3xTF32 parts zero-padded to 64
-(``pad_dq_parts``), which are those of the padded inputs bit for bit.  D >
-128 raises.  The float32 kernels run on the tensor cores in 3xTF32:
-``flash_attention_fwd`` and ``flash_attention_bwd`` first make their operands
-with ``tf32_fwd_parts`` and ``tf32_parts``.
+whose k-step is 16 columns; D in {32, 40, 64, 128} in float32 (tf32's k-step
+is 8 columns, so SD1.5's 40-wide heads take no pad in the forward, dQ or
+dK/dV kernel).  A narrower head is zero-padded to the next width its kernel
+takes and the result sliced back (exact: zero columns add nothing to q k^T,
+to o, or to delta).  D > 128 raises.  The float32 kernels run on the tensor
+cores in 3xTF32: ``flash_attention_fwd`` and ``flash_attention_bwd`` first
+make their operands with ``tf32_fwd_parts`` and ``tf32_parts``.
 """
 from __future__ import annotations
 
@@ -42,9 +39,8 @@ from mrisr_torch.device import device_ctx
 KERNEL_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 # (kernel, dtype) -> the head widths it takes: ``fwd`` (B1), ``dq`` (B2a), ``dkv`` (B2b).
 _BF16_DIMS, _TF32_DIMS = (32, 64, 128), (32, 40, 64, 128)
-KERNEL_HEAD_DIMS = {("fwd", torch.bfloat16): _BF16_DIMS, ("fwd", torch.float32): _TF32_DIMS,
-                    ("dq", torch.bfloat16): _BF16_DIMS, ("dq", torch.float32): _BF16_DIMS,
-                    ("dkv", torch.bfloat16): _BF16_DIMS, ("dkv", torch.float32): _TF32_DIMS}
+KERNEL_HEAD_DIMS = {(kernel, dtype): dims for kernel in ("fwd", "dq", "dkv")
+                    for dtype, dims in ((torch.bfloat16, _BF16_DIMS), (torch.float32, _TF32_DIMS))}
 PLAIN_CHUNK = 512
 # The tensor cores read an fp32 operand of a tf32 product as its bits with the
 # 13 low mantissa bits dropped (``mrisr_torch/tools/tf32_probe.py`` checks it
@@ -179,21 +175,6 @@ def _pad_head_dim(x: torch.Tensor, d_to: int) -> torch.Tensor:
     return x if d == d_to else torch.nn.functional.pad(x, (0, d_to - d))
 
 
-def pad_dq_parts(parts: dict[str, torch.Tensor], d_to: int) -> dict[str, torch.Tensor]:
-    """The parts the dQ kernel reads (``DQ_PARTS``) of :func:`tf32_parts`, zero-padded to head width ``d_to``:
-    the hi/lo columns of q, k, v, do and the rows of the transposed k.  Zero splits into zero parts, so they
-    are :func:`tf32_parts` of the zero-padded inputs, bit for bit.  A part already ``d_to`` wide is kept."""
-    pad = torch.nn.functional.pad
-    out = {}
-    for name in DQ_PARTS:
-        t = parts[name]
-        if name in ("kt", "kt_lo"):  # [B, D, Mp]
-            out[name] = t if t.shape[1] == d_to else pad(t, (0, 0, 0, d_to - t.shape[1]))
-        else:
-            out[name] = _pad_head_dim(t, d_to)
-    return out
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("flash attention takes [B, N, D] tensors")
@@ -323,20 +304,17 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         raise ValueError("tensors on different devices")
 
 
-def _check_parts(q: torch.Tensor, k: torch.Tensor, parts, names: tuple[str, ...] = TF32_PARTS,
-                 d: int | None = None) -> None:
+def _check_parts(q: torch.Tensor, k: torch.Tensor, parts, names: tuple[str, ...] = TF32_PARTS) -> None:
     """Raise unless ``parts`` holds the ``names`` of what :func:`tf32_parts` (``TF32_PARTS``, or the parts a
     kernel reads: ``DQ_PARTS``, ``DKV_PARTS``) or :func:`tf32_fwd_parts` (``TF32_FWD_PARTS``) makes for
-    float32 ``q``, ``k`` at head width ``d`` (q's, or wider for parts padded to it: :func:`pad_dq_parts`);
-    None for bf16.  Other parts are not read."""
+    float32 ``q``, ``k``, at q's head width; None for bf16.  Other parts are not read."""
     if q.dtype != torch.float32:
         if parts is not None:
             raise ValueError("the 3xTF32 parts are for float32 inputs only")
         return
     if parts is None or not set(names) <= set(parts):
         raise ValueError(f"float32 kernels take the parts {names}")
-    (b, n, _), m = q.shape, k.shape[1]
-    d = q.shape[2] if d is None else d
+    (b, n, d), m = q.shape, k.shape[1]
     np_, mp = (-(-x // TRANSPOSE_PAD) * TRANSPOSE_PAD for x in (n, m))
     qs, ks = (b, n, d), (b, m, d)
     shapes = {"q_hi": qs, "do_hi": qs, "k_hi": ks, "v_hi": ks, "q_lo": qs, "do_lo": qs, "k_lo": ks, "v_lo": ks,
@@ -351,12 +329,12 @@ def _check_parts(q: torch.Tensor, k: torch.Tensor, parts, names: tuple[str, ...]
     _check_tensors(b, **{name: parts[name] for name in names})
 
 
-def _parts_arg(q, k, v, do, parts, names: tuple[str, ...] = TF32_PARTS, d: int | None = None):
+def _parts_arg(q, k, v, do, parts, names: tuple[str, ...] = TF32_PARTS):
     """The C interface's ``parts``: a host array of the device pointers of ``names`` in ``TF32_PARTS`` order,
     null for the others (None for bf16), and the parts, which must live until the launch is enqueued."""
     if q.dtype == torch.float32 and parts is None:
         parts = tf32_parts(q, k, v, do)
-    _check_parts(q, k, parts, names, d)
+    _check_parts(q, k, parts, names)
     if parts is None:
         return None, None
     ptrs = (parts[x].data_ptr() if x in names else None for x in TF32_PARTS)
@@ -365,32 +343,25 @@ def _parts_arg(q, k, v, do, parts, names: tuple[str, ...] = TF32_PARTS, d: int |
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, parts=None) -> torch.Tensor:
     """Launch the dQ kernel: ``delta`` is ``rowsum(do * o)`` in float32, ``[B, N]``; ``parts`` (float32
-    only) is :func:`tf32_parts` of the inputs, made here when not given.  A float32 head the kernel does
-    not take (D=40) runs at the next width it takes, on the parts zero-padded to it (:func:`pad_dq_parts`;
-    ``parts`` may already be), and dq is sliced back."""
+    only) is :func:`tf32_parts` of the inputs, made here when not given.  D as the kernel takes it."""
     b, n, d = q.shape
-    kd = d
-    if q.dtype == torch.float32:
-        kd = kernel_head_dim(d, q.dtype, "dq")
-        if kd != d:
-            parts = pad_dq_parts(tf32_parts(q, k, v, do) if parts is None else parts, kd)
-    _check_kernel_inputs(kd, b, "dq", q=q, k=k, v=v, do=do, lse=lse, delta=delta)
-    ptrs, parts = _parts_arg(q, k, v, do, parts, DQ_PARTS, kd)
-    dq = torch.empty((b, n, kd), dtype=q.dtype, device=q.device)
+    _check_kernel_inputs(d, b, "dq", q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    ptrs, parts = _parts_arg(q, k, v, do, parts, DQ_PARTS)
+    dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), b, n, k.shape[1], kd, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
+            dq.data_ptr(), b, n, k.shape[1], d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention dQ kernel launch failed: cudaError {err}")
     flash_attention_bwd_dq.launches += 1
-    return dq if kd == d else dq[..., :d].contiguous()
+    return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, parts=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel; arguments as :func:`flash_attention_bwd_dq` (its D as the kernel takes it)."""
+    """Launch the dK/dV kernel; arguments as :func:`flash_attention_bwd_dq`."""
     b, n, d = q.shape
     _check_kernel_inputs(d, b, "dkv", q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     ptrs, parts = _parts_arg(q, k, v, do, parts, DKV_PARTS)
@@ -423,8 +394,7 @@ def flash_attention_bwd(
         raise ValueError(f"unsupported device {q.device}")
     # As in the reference, delta is reduced outside the kernels; so are the
     # float32 kernels' 3xTF32 parts, made once for both.  A head narrower
-    # than the dK/dV kernel's is zero-padded after delta is taken and sliced
-    # back; the dQ kernel pads the parts it reads where it takes no such head.
+    # than the kernels' is zero-padded after delta is taken and sliced back.
     delta = (do.float() * o.float()).sum(dim=-1)
     d = q.shape[2]
     for seen in flash_attention_bwd.shapes:

@@ -38,6 +38,10 @@ fp32 (3xTF32) variants:
   16 queries in 3 stages);
 * ``f32_dq_two_consumers_d64``: dQ at D=64 with two consumers (128 Q rows
   a CTA) and 32 keys in 2 stages (design: one consumer, 3 stages);
+* dQ at D=40 (design: one consumer, 64 keys a tile in 3 stages), with two
+  consumers (128 Q rows a CTA): ``f32_dq_two_consumers_d40`` 64 keys in 2
+  stages, ``f32_dq_two_consumers_bk32_d40`` 32 keys in 3,
+  ``f32_dq_two_consumers_bk32_s4_d40`` 32 keys in 4;
 * ``f32_dkv_stages2_d40``: dK/dV at D=40 in 2 stages (design: 32 queries in
   3; 16 queries would leave the D-wide tiles off their 1024-byte alignment);
 * ``f32_dkv_one_consumer_d40``: dK/dV at D=40 with one consumer (64 K/V rows
@@ -58,8 +62,7 @@ from mrisr_torch.ops import flash_attention as fa
 from mrisr_torch.tools.flash_fwd_sweep import build_variants, card, entry, parse_args
 
 SHAPES = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (8, 4096, 4096, 128), (8, 16384, 256, 32)]
-# The fp32 shapes: the ResDiff sites, and the SD route's 1024^2 training step (16 and 8 heads x lanes); at
-# D=40 dQ runs at 64 on its parts zero-padded (as flash_attention_bwd_dq runs it).
+# The fp32 shapes: the ResDiff sites, and the SD route's 1024^2 training step (16 and 8 heads x lanes).
 SHAPES_F32 = [(8, 16384, 16384, 32), (8, 4096, 4096, 64), (2, 1024, 1024, 128), (16, 16384, 16384, 40),
               (8, 16384, 16384, 40)]
 
@@ -82,6 +85,8 @@ VARIANTS = {
 }
 _F32_DKV_TILES = ("kQueries = D <= 40 ? 32 : 16;", "kStages = D == 32 ? 4 : (D <= 64 ? 3 : 1);")
 _F32_TURNS = ("kPingPong = kConsumers == 2;", "kPingPong = false;")
+_F32_DQ_TILES = ("kConsumers = D == 32 ? 2 : 1;", "kKeys = D <= 40 ? 64 : (D == 64 ? 32 : 16);",
+                 "kStages = D == 128 ? 2 : 3;")
 _3X_SS = """wgmma_tf32_ss<N>(d, a_lo, b_hi, scale_d);
   wgmma_tf32_ss<N>(d, a_hi, b_lo, 1);
   wgmma_tf32_ss<N>(d, a_hi, b_hi, 1);"""
@@ -90,7 +95,7 @@ _3X_RS = """wgmma_tf32_rs<N>(d, a_lo, b_hi, scale_d);
   wgmma_tf32_rs<N>(d, a_hi, b_hi);"""
 VARIANTS.update({
     "f32_no_pingpong": [_F32_TURNS, _F32_TURNS],
-    "f32_dq_bk32_d32": [("kKeys = D == 32 ? 64 : (D == 64 ? 32 : 16);", "kKeys = D == 32 ? 32 : (D == 64 ? 32 : 16);")],
+    "f32_dq_bk32_d32": [(_F32_DQ_TILES[1], "kKeys = D == 40 ? 64 : (D <= 64 ? 32 : 16);")],
     "f32_dkv_bq64_d32": [(_F32_DKV_TILES[0], "kQueries = D == 32 ? 64 : (D == 40 ? 32 : 16);"),
                          (_F32_DKV_TILES[1], "kStages = D == 32 ? 2 : (D <= 64 ? 3 : 1);")],
     "f32_dkv_one_consumer_d64": [
@@ -101,9 +106,15 @@ VARIANTS.update({
     "f32_dkv_one_consumer_d40": [
         ("kConsumers = 2; // At D=128 the owned tiles", "kConsumers = D == 40 ? 1 : 2; // At D=128 the owned tiles"),
         (_F32_DKV_TILES[1], "kStages = D <= 40 ? 4 : (D == 64 ? 3 : 1);")],
-    "f32_dq_two_consumers_d64": [
-        ("kConsumers = D == 32 ? 2 : 1;", "kConsumers = D == 128 ? 1 : 2;"),
-        ("kStages = D == 128 ? 2 : 3;", "kStages = D == 32 ? 3 : 2;")],
+    "f32_dq_two_consumers_d64": [(_F32_DQ_TILES[0], "kConsumers = D == 32 || D == 64 ? 2 : 1;"),
+                                 (_F32_DQ_TILES[2], "kStages = D == 64 || D == 128 ? 2 : 3;")],
+    "f32_dq_two_consumers_d40": [(_F32_DQ_TILES[0], "kConsumers = D <= 40 ? 2 : 1;"),
+                                 (_F32_DQ_TILES[2], "kStages = D == 40 || D == 128 ? 2 : 3;")],
+    "f32_dq_two_consumers_bk32_d40": [(_F32_DQ_TILES[0], "kConsumers = D <= 40 ? 2 : 1;"),
+                                      (_F32_DQ_TILES[1], "kKeys = D == 32 ? 64 : (D <= 64 ? 32 : 16);")],
+    "f32_dq_two_consumers_bk32_s4_d40": [(_F32_DQ_TILES[0], "kConsumers = D <= 40 ? 2 : 1;"),
+                                         (_F32_DQ_TILES[1], "kKeys = D == 32 ? 64 : (D <= 64 ? 32 : 16);"),
+                                         (_F32_DQ_TILES[2], "kStages = D == 40 ? 4 : (D == 128 ? 2 : 3);")],
     # Ablations, timed only.
     "f32_ablate_1xtf32": [("hopper.cuh", _3X_SS, "wgmma_tf32_ss<N>(d, a_hi, b_hi, scale_d);"),
                           ("hopper.cuh", _3X_RS, "wgmma_tf32_rs<N>(d, a_hi, b_hi, scale_d);")],
@@ -131,16 +142,10 @@ def sweep_shape(fns: dict, b: int, n: int, m: int, d: int, dtype=torch.bfloat16,
     bf16 = int(dtype == torch.bfloat16)
     parts = None if bf16 else fa.tf32_parts(q, k, v, do)
     ptrs = None if bf16 else fa._parts_arg(q, k, v, do, parts)[0]
-    # dQ at the width its kernel takes: a 40-wide fp32 head on its parts zero-padded to 64.
-    dq_d = d if bf16 else fa.kernel_head_dim(d, dtype, "dq")
-    ptrs_dq, parts_dq = (ptrs, parts) if dq_d == d else fa._parts_arg(q, k, v, do, fa.pad_dq_parts(parts, dq_d),
-                                                                       fa.DQ_PARTS, dq_d)  # parts_dq: kept alive
-    dq_full = torch.empty((b, n, dq_d), dtype=dtype, device="cuda")
-    dq = dq_full[..., :d]
+    dq = torch.empty_like(q)
     calls = {}
     for name, (fn_dq, fn_dkv) in fns.items():
-        calls[f"{name}/dq"] = lambda fn=fn_dq: fn(*args, dq_full.data_ptr(), b, n, m, dq_d, bf16, scale, ptrs_dq,
-                                                   stream)
+        calls[f"{name}/dq"] = lambda fn=fn_dq: fn(*args, dq.data_ptr(), b, n, m, d, bf16, scale, ptrs, stream)
         calls[f"{name}/dkv"] = lambda fn=fn_dkv: fn(*args, dk.data_ptr(), dv.data_ptr(), b, n, m, d, bf16, scale,
                                                      ptrs, stream)
     rec = {"shape": [b, n, m, d], "dtype": str(dtype).split(".")[-1], "max_abs_err": {},

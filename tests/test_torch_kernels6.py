@@ -1,8 +1,8 @@
 """Head-width padding, the fp32 flash forward's 3xTF32 arithmetic and GroupNorm+SiLU's cluster plan, on the CPU.
 
-* The flash kernels exist for D in (32, 64, 128), and the fp32 forward and
-  dK/dV kernels also for 40; the wrappers zero-pad a narrower head to the
-  next width its kernel takes and slice the result back.  The padded plain
+* The flash kernels exist for D in (32, 64, 128), and the fp32 ones also
+  for 40; the wrappers zero-pad a narrower head to the next width its kernel
+  takes and slice the result back.  The padded plain
   path is held to the unpadded one and to JAX's Pallas kernels (interpret
   mode), which pad D themselves.
 * The fp32 forward kernel computes in 3xTF32 on the tensor cores; its
@@ -59,7 +59,8 @@ _BF16, _FP32 = torch.bfloat16, torch.float32
     pytest.param(33, _FP32, "fwd", 40, id="33-float32-fwd-40"),
     pytest.param(40, _FP32, "dkv", 40, id="40-float32-dkv-40"),
     pytest.param(36, _FP32, "dkv", 40, id="36-float32-dkv-40"),
-    pytest.param(40, _FP32, "dq", 64, id="40-float32-dq-64"),  # B2a keeps (32, 64, 128): its parts are padded
+    pytest.param(40, _FP32, "dq", 40, id="40-float32-dq-40"),
+    pytest.param(36, _FP32, "dq", 40, id="36-float32-dq-40"),
     pytest.param(40, _BF16, "dkv", 64, id="40-bfloat16-dkv-64"),
     pytest.param(41, _FP32, "fwd", 64, id="41-float32-fwd-64"),
     pytest.param(16, _FP32, "dkv", 32, id="16-float32-dkv-32"),
@@ -70,10 +71,10 @@ def test_kernel_head_dim_is_the_next_kernel_width(d, dtype, kernel, want):
     assert want in t_flash.KERNEL_HEAD_DIMS[kernel, dtype]
 
 
-@pytest.mark.parametrize("kernel, dtype, ok", [("fwd", _FP32, True), ("dkv", _FP32, True), ("dq", _FP32, False),
+@pytest.mark.parametrize("kernel, dtype, ok", [("fwd", _FP32, True), ("dkv", _FP32, True), ("dq", _FP32, True),
                                                ("fwd", _BF16, False), ("dkv", _BF16, False)])
 def test_kernel_inputs_take_40_wide_heads_where_the_kernel_does(kernel, dtype, ok):
-    """The launch check lets a 40-wide head reach the fp32 forward and dK/dV kernels only."""
+    """The launch check lets a 40-wide head reach the fp32 kernels only."""
     tensors = {n: torch.zeros(1, 8, 40, dtype=dtype) for n in ("q", "k", "v")}
     if ok:
         t_flash._check_kernel_inputs(40, 1, kernel, **tensors)
@@ -84,7 +85,8 @@ def test_kernel_inputs_take_40_wide_heads_where_the_kernel_does(kernel, dtype, o
 
 def test_kernel_head_dims_match_the_sources():
     """``KERNEL_HEAD_DIMS`` is what the C entry points dispatch: the forward's launch_bf16 / launch_f32
-    cases, the backward's launch_dq / launch_dkv cases (dK/dV's D=40 refusing bf16 at compile time)."""
+    cases, the backward's launch_dq / launch_dkv cases (the fp32 widths; each refuses bf16 at D=40 at
+    compile time, leaving the bf16 widths)."""
     import re
 
     fwd = (CSRC / "flash_attn_fwd.cu").read_text()
@@ -92,10 +94,13 @@ def test_kernel_head_dims_match_the_sources():
     cases = lambda src, fn: tuple(sorted(int(x) for x in re.findall(rf"case (\d+): return \(int\){fn}<\1>", src)))  # noqa: E731
     assert cases(fwd, "launch_bf16") == t_flash.KERNEL_HEAD_DIMS["fwd", _BF16]
     assert cases(fwd, "launch_f32") == t_flash.KERNEL_HEAD_DIMS["fwd", _FP32]
-    assert cases(bwd, "launch_dq") == t_flash.KERNEL_HEAD_DIMS["dq", _FP32] == t_flash.KERNEL_HEAD_DIMS["dq", _BF16]
-    assert cases(bwd, "launch_dkv") == t_flash.KERNEL_HEAD_DIMS["dkv", _FP32]
-    assert "if constexpr (D == 40) {\n      return cudaErrorInvalidValue;  // bf16" in bwd
-    assert tuple(d for d in cases(bwd, "launch_dkv") if d != 40) == t_flash.KERNEL_HEAD_DIMS["dkv", _BF16]
+    refusal = "if (bf16) {\n    if constexpr (D == 40) {\n      return cudaErrorInvalidValue;  // bf16"
+    for kernel in ("dq", "dkv"):
+        launch = bwd[bwd.index(f"cudaError_t launch_{kernel}("):]
+        launch = launch[:launch.index("\n}\n")]  # the function's body
+        assert refusal in launch, kernel
+        assert cases(bwd, f"launch_{kernel}") == t_flash.KERNEL_HEAD_DIMS[kernel, _FP32]
+        assert tuple(d for d in cases(bwd, f"launch_{kernel}") if d != 40) == t_flash.KERNEL_HEAD_DIMS[kernel, _BF16]
 
 
 @pytest.mark.parametrize("d", [129, 160, 0])

@@ -520,33 +520,33 @@ def test_tf32_parts_match_numpy(n, m, d):
 
 
 @pytest.mark.parametrize("n,m", [(130, 70), (37, 5)])
-def test_dq_parts_padded_to_64_are_the_parts_of_the_padded_inputs(n, m):
-    """B2a takes no 40-wide head: ``pad_dq_parts`` widens the parts it reads (``DQ_PARTS``) of 40-wide inputs
-    to 64, bit for bit ``tf32_parts`` of the inputs zero-padded to 64, so dQ is what the padded route gives."""
+def test_dq_parts_of_40_wide_heads_are_read_at_their_own_width(n, m):
+    """B2a takes a 40-wide fp32 head as it is: ``tf32_parts`` of 40-wide inputs are the parts it reads
+    (``DQ_PARTS``) at q's own width, and the C interface gets null for the transposed Q and dO."""
     rng = np.random.default_rng(33)
     q, k, v, do = (torch.from_numpy((rng.standard_normal((2, s, 40)) * 2.0 ** rng.integers(-4, 5, (2, s, 40)))
                                     .astype(np.float32)) for s in (n, m, m, n))
-    padded = t_flash.pad_dq_parts(t_flash.tf32_parts(q, k, v, do), 64)
-    want = t_flash.tf32_parts(*(t_flash._pad_head_dim(t, 64) for t in (q, k, v, do)))
-    assert tuple(padded) == t_flash.DQ_PARTS
-    for name in t_flash.DQ_PARTS:
-        assert torch.equal(padded[name].view(torch.int32), want[name].view(torch.int32)), name
-    assert t_flash.pad_dq_parts(padded, 64)["kt"] is padded["kt"]  # already 64 wide: kept
-    t_flash._check_parts(q, k, padded, t_flash.DQ_PARTS, 64)
+    parts = t_flash.tf32_parts(q, k, v, do)
+    t_flash._check_parts(q, k, parts, t_flash.DQ_PARTS)
+    assert tuple(parts["kt"].shape) == (2, 40, -(-m // t_flash.TRANSPOSE_PAD) * t_flash.TRANSPOSE_PAD)
+    ptrs, kept = t_flash._parts_arg(q, k, v, do, parts, t_flash.DQ_PARTS)
+    assert kept is parts
+    assert [ptrs[t_flash.TF32_PARTS.index(x)] for x in ("qt", "qt_lo", "dot", "dot_lo")] == [None] * 4
+    assert all(ptrs[t_flash.TF32_PARTS.index(x)] == parts[x].data_ptr() for x in t_flash.DQ_PARTS)
+    wide = {name: t_flash._pad_head_dim(t, 64) if name not in ("kt", "kt_lo") else t for name, t in parts.items()}
     with pytest.raises(ValueError, match="part q_hi"):
-        t_flash._check_parts(q, k, padded, t_flash.DQ_PARTS)  # at q's own width, 40
+        t_flash._check_parts(q, k, wide, t_flash.DQ_PARTS)  # parts padded to 64: not q's width
 
 
 def test_parts_arg_passes_null_for_parts_the_kernel_does_not_read():
     """The C interface's ``parts``: every pointer in ``TF32_PARTS`` order, null where the kernel reads no such
-    part (dQ: the transposed Q and dO; dK/dV: the transposed K), so dQ's padded parts need no Q^T, dO^T."""
+    part (dQ: the transposed Q and dO; dK/dV: the transposed K)."""
     q = torch.zeros(1, 8, 40)
     parts = t_flash.tf32_parts(q, q, q, q)
-    for names, d, given in ((t_flash.DQ_PARTS, 64, t_flash.pad_dq_parts(parts, 64)), (t_flash.DKV_PARTS, 40, parts),
-                            (t_flash.TF32_PARTS, 40, parts)):
-        ptrs, kept = t_flash._parts_arg(q, q, q, q, given, names, d)
-        assert kept is given and len(ptrs) == len(t_flash.TF32_PARTS)
-        assert list(ptrs) == [given[x].data_ptr() if x in names else None for x in t_flash.TF32_PARTS]
+    for names in (t_flash.DQ_PARTS, t_flash.DKV_PARTS, t_flash.TF32_PARTS):
+        ptrs, kept = t_flash._parts_arg(q, q, q, q, parts, names)
+        assert kept is parts and len(ptrs) == len(t_flash.TF32_PARTS)
+        assert list(ptrs) == [parts[x].data_ptr() if x in names else None for x in t_flash.TF32_PARTS]
     assert set(t_flash.TF32_PARTS) - set(t_flash.DQ_PARTS) == {"qt", "qt_lo", "dot", "dot_lo"}
     assert set(t_flash.TF32_PARTS) - set(t_flash.DKV_PARTS) == {"kt", "kt_lo"}
 
