@@ -13,8 +13,9 @@ result.  Each phase prints JSON lines:
    spills, and no serialized wgmma pipeline -- ptxas's "Performance Loss"
    notes -- in any CUDA library), and the HGMMA (wgmma) instruction count
    of each flash kernel, bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
-   D = 32, 64, 128, and the fp32 forward and dK/dV at D = 40, from
-   ``cuobjdump -sass`` (none of the 20 may be 0);
+   D = 32, 64, 128, the fp32 forward, dQ and dK/dV at D = 40, and the bf16
+   forward's resident form at D = 32, from ``cuobjdump -sass`` (none of the
+   22 may be 0);
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and fp32 (plus ragged shapes, ragged
    shapes where every score is below -100, each also at D = 40, and head
@@ -23,10 +24,12 @@ result.  Each phase prints JSON lines:
    beside its bound, the plain version's time
    and one PyTorch library call's time (timed only; the port never calls
    it); the kernel's own device time (``torch.profiler``) and the wrapper's
-   host microseconds per call; for fp32 a tensor-core (3xTF32) bound beside
-   the FMA bound and the device time of the 3xTF32 operand prep (the
-   forward's also with its prep, against the library call's device time);
-   the backward's results bitwise equal over two calls; gradients through
+   host microseconds per call, and the library call's device time; for fp32
+   a tensor-core (3xTF32) bound beside the FMA bound and the device time of
+   the 3xTF32 operand prep (the forward's also with its prep); the
+   forward's (both forms of the bf16 one: ``FLASH_RESIDENT`` crosses batches
+   inside a CTA's run) and the backward's results bitwise equal over two
+   calls, each case's worst share of its limit; gradients through
    the autograd function against the direct backward call; GroupNorm+SiLU
    at all 13 shapes of the UNet;
 4. ``chain``: the full-width 256^2, bs-8, bf16, 50-step ResDiff serving chain
@@ -205,12 +208,20 @@ FLASH_CASES = [  # (case, B, N, M, D): the chain's two flash sites, both profile
 FLASH_RAGGED = [("ragged", 2, 1000, 777, 32), ("ragged", 1, 333, 4097, 64), ("ragged", 3, 130, 70, 128),
                 # fewer queries than one CTA and keys than one tile; keys ending mid-tile at B >= 2, D=64
                 ("ragged", 2, 37, 5, 32), ("ragged", 2, 300, 1000, 64),
+                # bf16 D=32 past RESIDENT_MAX_KEYS: the tiled form's masked last tile and partial Q tile
+                ("ragged", 2, 1000, 1537, 32),
                 # SD1.5's 40-wide heads (fp32 B1, B2a and B2b take them unpadded, with a tail box a row): N not a
                 # multiple of 128, M not one of 64, and M below one tile
                 ("ragged", 3, 130, 70, 40), ("ragged", 2, 37, 5, 40)]
 # Ragged shapes where every score is below -100 (extreme_qk): a zero key past
 # M would score 0 and get p = exp(-lse), which overflows.
-FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32), ("extreme", 2, 300, 1000, 40)]
+FLASH_EXTREME = [("extreme", 2, 300, 1000, 64), ("extreme", 2, 1000, 777, 32), ("extreme", 2, 300, 1000, 40),
+                 ("extreme", 2, 1000, 1537, 32)]
+# The bf16 forward's resident form (M up to ops.flash_attention.RESIDENT_MAX_KEYS) where one CTA's run of Q
+# tiles crosses a batch: more Q tiles than SMs at B >= 3, M not a multiple of 128, N not one of 128; forward
+# only (no path runs the backward at such shapes).
+FLASH_RESIDENT = [("ragged", 3, 16461, 300, 32), ("ragged", 4, 9000, 77, 32), ("ragged", 3, 16461, 1000, 32),
+                  ("extreme", 3, 16461, 300, 32)]
 # Head widths the kernels do not have: the wrappers pad D to 32, and 36 to 40 (fp32) or 64 (bf16); bf16 pads
 # 40 to 64.
 FLASH_PAD = [("pad", 2, 4096, 4096, 16), ("pad", 2, 1000, 777, 40), ("pad", 2, 1000, 777, 36)]
@@ -433,8 +444,9 @@ def phase_build(torch):
     spills = {name: sum("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in lines)
               for name, lines in ptxas.items()}
     # Every flash kernel -- bf16 and fp32 (3xTF32) forward, dQ and dK/dV at
-    # D = 32, 64, 128, and the fp32 forward, dQ and dK/dV at D = 40 -- is built
-    # on wgmma: the SASS of each of the 21 must hold HGMMA instructions.
+    # D = 32, 64, 128, the fp32 forward, dQ and dK/dV at D = 40, and the bf16
+    # forward's resident form at D = 32 -- is built on wgmma: the SASS of each
+    # of the 22 must hold HGMMA instructions.
     hgmma = {k: n for lib in flash_attention.LIBRARIES
              for k, n in sass_counts(_build.build_dir() / f"lib{lib}.so", "HGMMA").items()
              if k.startswith(("flash_fwd_", "flash_bwd_"))}
@@ -442,7 +454,7 @@ def phase_build(torch):
           "kernels_with_spills": spills, "flash_hgmma": hgmma, "ptxas": ptxas})
     # ptxas notes a wgmma pipeline it had to serialize (the design's overlap lost).
     serialized = [ln for lines in ptxas.values() for ln in lines if "Performance Loss" in ln]
-    if len(hgmma) != 21 or not all(hgmma.values()) or any(spills.values()) or serialized:
+    if len(hgmma) != 22 or not all(hgmma.values()) or any(spills.values()) or serialized:
         raise AssertionError(f"build: HGMMA counts {hgmma}, kernels with spills {spills}, "
                              f"ptxas performance notes {serialized}")
 
@@ -463,8 +475,10 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
     q, k, v = flash_inputs(torch, dtype, case, b * 7 + n + m + d, [(b, n), (b, m), (b, m)], d)
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, scale)  # no atomics, a fixed order: the same bits again
     ro, rlse = fa.flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
+    bitwise = bool(torch.equal(o, o2)) and bool(torch.equal(lse, lse2))
     name = str(dtype).split(".")[-1]
     tol = FLASH_TOL[name]
     ref = ro.float()
@@ -474,12 +488,17 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
     rms_err_rel = float(o_err.square().mean().sqrt()) / rms_ref
     lse_err = (lse - rlse).abs()
     ok = (bool((o_err <= o_limit).all()) and rms_err_rel <= tol["o_rms_rel"]
-          and bool((lse_err <= tol["lse_atol"]).all()))
+          and bool((lse_err <= tol["lse_atol"]).all()) and bitwise)
+    kd = fa.kernel_head_dim(d, dtype)
+    shares = {"o_err_over_limit": float((o_err / o_limit).max()),
+              "rms_err_over_limit": rms_err_rel / tol["o_rms_rel"],
+              "lse_err_over_limit": float(lse_err.max()) / tol["lse_atol"]}
     rec = {"phase": "kernel", "kernel": "flash_attention_fwd", "case": case, "dtype": name,
-           "shape": [b, n, m, d], "max_abs_err": float(o_err.max()), "o_atol": tol["o_atol_rms"] * rms_ref,
-           "o_err_over_limit": float((o_err / o_limit).max()), "ref_rms": rms_ref, "rms_err_rel": rms_err_rel,
-           "lse_max_abs_err": float(lse_err.max()), "max_rel_err": float(o_err.max() / ref.abs().max()),
-           "tolerance": tol, "ok": ok}
+           "shape": [b, n, m, d], "form": fa.fwd_form(m, kd, dtype), "max_abs_err": float(o_err.max()),
+           "o_atol": tol["o_atol_rms"] * rms_ref, **shares, "worst_share": max(shares.values()), "ref_rms": rms_ref,
+           "rms_err_rel": rms_err_rel, "lse_max_abs_err": float(lse_err.max()),
+           "max_rel_err": float(o_err.max() / ref.abs().max()), "bitwise_repeat": bitwise, "tolerance": tol,
+           "ok": ok}
     if timed:
         size = q.element_size()
         n_bytes = (2 * b * n * d + 2 * b * m * d) * size + 4 * b * n
@@ -497,10 +516,10 @@ def check_flash(torch, F, dtype, case, b, n, m, d, timed):
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]  # [B, 1 head, N, D]: fused backends take 4-D
         run_library = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
         rec["library_ms"] = cuda_ms(torch, run_library, max_iters=10)
+        rec["library_device_ms"] = device_ms(torch, run_library, None, iters=10)
         if dtype == torch.float32:  # the 3xTF32 operands are made in every call: "fwd with prep"
             rec["prep_device_ms"] = device_ms(torch, lambda: fa.tf32_fwd_parts(q, k, v), None)
             rec["with_prep_device_ms"] = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale), None)
-            rec["library_device_ms"] = device_ms(torch, run_library, None, iters=10)
     emit(rec)
     if not ok:
         raise AssertionError(f"flash attention disagrees with its plain version: {rec}")
@@ -752,6 +771,8 @@ def phase_kernels(torch):
                 recs["flash_attention_fwd"].append(check_flash(torch, F, dtype, *case, timed=timed))
                 for name, rec in check_flash_bwd(torch, F, dtype, *case, timed=timed).items():
                     recs[name].append(rec)
+        for case in FLASH_RESIDENT:
+            recs["flash_attention_fwd"].append(check_flash(torch, F, dtype, *case, timed=False))
         chain = dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
         for i, case in enumerate(GN_CASES):
             rec = check_gn(torch, F, dtype, *case, timed=True, backward=i < 2)
@@ -771,6 +792,8 @@ def phase_kernels(torch):
     for case in (FLASH_SD_BWD, FLASH_SD_BWD_UP):
         for name, rec in check_flash_bwd(torch, F, torch.float32, *case, timed=True).items():
             recs[name].append(rec)
+    # The forward at the backward's shape: a fused 1024^2 ControlNet training step's up-tower sites.
+    recs["flash_attention_fwd"].append(check_flash(torch, F, torch.float32, *FLASH_SD_STEP, timed=True))
     check_flash_autograd(torch)
     check_captured(torch)
     return recs
@@ -1724,6 +1747,8 @@ FLASH_SD_UP = ("sd_up", 16, 16384, 16384, 40)
 # image's 8 heads).  (Before the fused towers: one image's 8 heads.)
 FLASH_SD_BWD = ("sd_fused", 16, 16384, 16384, 40)
 FLASH_SD_BWD_UP = ("sd_up", 8, 16384, 16384, 40)
+# The forward at 8x16384^2x40: the fused 1024^2 ControlNet step's up-tower sites (timed in phase ``kernel``).
+FLASH_SD_STEP = ("sd_step", 8, 16384, 16384, 40)
 
 
 def latent_modules(torch, dtype, seed=10):

@@ -13,13 +13,32 @@
 // exact profile: B=8, N=M=16384, D=32, bf16:
 //   * matrix products: 4*B*N*M*D = 275 GFLOP -> 0.28 ms on the tensor cores;
 //   * exponentials: B*N*M = 2.1 G -> about 0.58 ms at the 16 per clock per SM
-//     of the special-function units.  At D=32 the exponentials, not the
-//     tensor cores, set the floor (the TPU kernel was VPU-bound for the same
-//     reason), so every other instruction per score competes with them;
+//     of the special-function units (MUFU).  A share f of them on the FMA
+//     pipes (Cody-Waite reduction and a degree-3 polynomial: about 9 issue
+//     slots on 128 lanes against 1 slot on 16) would lower that floor to
+//     (1 - f) 0.58 ms, until the issue slots of the other per-score
+//     instructions (an FFMA, a max, half a pack) bind, near f = 1/3 and 0.4 ms;
 //   * bytes: ~34 MB -> 10 us.
+// The kernel takes 0.85-0.89 ms, 1.5x the MUFU floor, but neither floor holds
+// it: with every exponential replaced by one FMUL it takes 0.07-0.10 ms less,
+// and without the row max, the P pack, S = Q K^T, the rescale or the
+// denominator it is as fast or slower (up to +0.26 ms; sweep ablations,
+// against the same call's design): the schedule ptxas makes of the loop, not
+// one unit, sets the time.  Any share of exponentials on the FMA pipes was
+// slower (5/16: 1.03 ms), and so was rescaling only when a row max of the
+// warp grew (at all: 1.23-1.25; by more than 8, FlashAttention-4's rule:
+// 1.23-1.26), so the MUFU takes every exponential and O is rescaled after
+// every tile (the sweep's poly* and rescale_* variants carry the
+// alternatives).
 // At the 64^2 skip (8x4096x4096x64) the tensor-core and exp floors are about
 // equal (0.035 and 0.036 ms).  With K/V pooled 8x8 (M=256 or 64) the call is
-// bound by bytes (a few us) and by the wrapper's host time.
+// bound by bytes (a few us): each CTA of the tiled form ran two tiles of keys
+// after its own set-up and loads, 7.8 waves of them (0.035 ms at M=256).  So
+// short K/V at D=32 take the resident form (flash_fwd_bf16_resident_kernel,
+// below; ops/flash_attention.py::fwd_form picks it up to RESIDENT_MAX_KEYS =
+// 1024 keys, where it was faster than the tiled form; sweep).  At D=64 its
+// gain at 64 and 256 keys was within the run-to-run spread, so D=64 keeps
+// the tiled form.
 //
 // bf16 design (FlashAttention-3's shape, written in raw PTX: hopper.cuh).
 // Choices marked (sweep) were timed against the alternative named, in turns
@@ -44,8 +63,14 @@
 //     22-30 % slower (sweep).
 //   * S = Q K^T with wgmma m64n128k16, both operands K-major shared-memory
 //     descriptors.  Per tile t a consumer issues S(t), rescales O, issues
-//     O += P(t-1) V(t-1), runs the softmax of S(t) while that product runs,
-//     and packs P(t) once it has retired.  At D=64 S(t+1) is issued too,
+//     O += P(t-1) V(t-1), runs the softmax of S(t), and packs P(t) once that
+//     product has retired.  In the SASS the wait for it comes before the row
+//     max: the assembler interleaves the packs of P(t), which reuse P(t-1)'s
+//     registers, with the exponentials, so the softmax does not overlap the
+//     product.  Packing into a second set of P registers let it overlap, and
+//     was no faster at D=32, slower at D=128 and serialized the resident
+//     form (ptxas note C7514; tried while this design was made, not kept as
+//     a sweep variant).  At D=64 S(t+1) is issued too,
 //     into a second S buffer, before the softmax of tile t (8-17 % faster
 //     there; 0-4 % slower at D=32; no room at D=128; sweep).  At D=128 the
 //     two consumers take turns issuing on named barriers, so one's
@@ -61,10 +86,16 @@
 //     layouts line up), and V is an MN-major B operand read with wgmma's
 //     transpose bit.
 //   * The denominator sums the bf16-rounded p, as the reference's V_AUG does,
-//     on the tensor cores: one wgmma m64n8k16 per k-step against a tile of
-//     ones in shared memory gives the row sums of P in fp32 with no
-//     per-score add (summing in registers was 39-48 % slower at D=32 and
-//     0-8 % at D=64; sweep).
+//     on the tensor cores (summing in registers was 39-48 % slower at D=32
+//     and 0-8 % at D=64; sweep).  At D=32 and 64 each V stage has a tile of
+//     ones beside it, where the MN-major B operand of a wgmma at N = D + 8
+//     finds its last 8 columns, so one wgmma gives O and l (kOnesInV; at
+//     8x16384^2x32 0.85-0.89 ms against 0.93-0.95 with a second wgmma
+//     m64n8k16 per k-step against one tile of ones, which D=128 keeps; 1-3 %
+//     faster at 8x4096^2x64; 4 % slower at 256 keys in the resident form;
+//     sweep).  The ones go in with 16-byte stores, into the stages the loop
+//     uses only: with 4-byte stores into every stage the loop ran 3-8 %
+//     slower at 8x16384^2x32 and 5 % at 8x4096x64x64 (sweep).
 //   * wgmma operands are pinned with fence_regs around each batch: a write
 //     to them that the compiler moves inside a batch makes ptxas serialize
 //     every wgmma of the kernel (notes C7511/C7513/C7515; chip_smoke.py's
@@ -133,16 +164,15 @@
 
 namespace {
 
-// Tile table of the bf16 kernel, per head dimension D.
+// Tile table of the bf16 kernels (the tiled and the resident form), per head
+// dimension D.
 template <int D>
 struct Bf16Tiles : SwizzledRows<D> {
   static constexpr int kConsumers = 2;               // consumer warpgroups, 64 Q rows each
   static constexpr int kRowsQ = 64 * kConsumers;     // Q rows per CTA
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  // Registers a thread after setmaxnreg: the producer gives up what the
-  // consumers take, from the 65536 / kThreads each starts with.
   static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr int kConsumerRegs = 240;
   static constexpr int kKeys = 128;                  // BK: keys per K/V tile
   static constexpr int kStages = D == 128 ? 2 : (D == 64 ? 3 : 4);
   // Measured per D (mrisr_torch/tools/flash_fwd_sweep.py): S(t+1) issued
@@ -152,19 +182,36 @@ struct Bf16Tiles : SwizzledRows<D> {
   static constexpr bool kIssueAhead = D == 64;
   static constexpr bool kPingPong = D == 128;
   static_assert(!kPingPong || kConsumers == 2, "turns are taken between two consumer warpgroups");
+  // The denominator: with kOnesInV each V tile has a tile of ones beside it
+  // (where an (N = D + 8)-wide MN-major B operand finds its last 8 columns),
+  // so one wgmma at N = D + 8 gives O and the row sums; else a second wgmma
+  // at N = 8 against one tile of ones (sweep).
+  static constexpr bool kOnesInV = D <= 64;
+  static_assert(!kOnesInV || D <= 64, "the ones tile is the second box of a V tile of one box");
+  static constexpr int kAccN = kOnesInV ? D + 8 : D;   // N of the P V product
   static constexpr int kQBytes = kRowsQ * D * 2;
-  static constexpr int kTileBytes = kKeys * D * 2;   // one K (or V) stage
+  static constexpr int kTileBytes = kKeys * D * 2;   // one K (or V) tile
+  static constexpr int kVStageBytes = kOnesInV ? 2 * kTileBytes : kTileBytes;  // a V tile and its ones
   static constexpr int kOnesBytes = 1024;
   static constexpr int kBarBytes = 8 + KvRing<kStages>::kBarBytes;
   // Shared memory: Q, K stages, V stages, ones, barriers, plus slack to align the base to 1024.
-  static constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kOnesBytes + kBarBytes + 1024;
+  static constexpr int kSmemBytes =
+      kQBytes + kStages * (kTileBytes + kVStageBytes) + kOnesBytes + kBarBytes + 1024;
   static_assert(kSmemBytes <= 232448, "shared memory per block");
+  // The resident form (flash_fwd_bf16_resident_kernel): two Q slots, every K
+  // and V tile of one batch, ones, six barriers.  It takes up to
+  // kResidentTiles tiles of keys, at D=32 only (0: no resident form).
+  static constexpr int kResidentTiles = D == 32 ? 1024 / kKeys : 0;
+  static constexpr int resident_smem(int tiles) {
+    return 2 * kQBytes + tiles * (kTileBytes + kVStageBytes) + kOnesBytes + 6 * 8 + 1024;
+  }
+  static_assert(resident_smem(kResidentTiles) <= 232448, "shared memory per block");
 };
 
 // The online-softmax update of one score tile, in place.  s: this thread's
 // scores of rows g and g+8 (wgmma layout), replaced by exp2(s * sl2 - m);
-// m0/m1: running row maxima in log2 units; a0/a1: the factor the previous O
-// and l must be scaled by.  Keys >= valid are masked when `mask` is set.
+// m0/m1: the running row maxima (log2 units); a0/a1: the factor the previous
+// O and l must be scaled by.  Keys >= valid are masked when `mask` is set.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float& m0, float& m1, float& a0, float& a1,
                                              float sl2, bool mask, int valid, int t4) {
@@ -206,10 +253,77 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float& m0, floa
   m1 = n1;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
-    s[4 * j] = ex2(fmaf(s[4 * j], sl2, -n0));
-    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -n0));
-    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -n1));
-    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -n1));
+    s[4 * j] = ex2(fmaf(s[4 * j], sl2, -m0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -m0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -m1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -m1));
+  }
+}
+
+// Scale O and l by the factors of the latest softmax (before P V adds the
+// tile they belong to).
+template <class T>
+__device__ __forceinline__ void rescale(float (&o)[T::kAccN / 2], float (&l)[4], float a0, float a1) {
+#pragma unroll
+  for (int j = 0; j < T::kAccN / 8; ++j) {
+    o[4 * j] *= a0;
+    o[4 * j + 1] *= a0;
+    o[4 * j + 2] *= a1;
+    o[4 * j + 3] *= a1;
+  }
+  l[0] *= a0;
+  l[1] *= a0;
+  l[2] *= a1;
+  l[3] *= a1;
+}
+
+// Fill the bf16 ones the denominator's product reads: the tile at `ones`
+// (byte offsets from `smem`), or with kOnesInV the second half of each of the
+// first `tiles` V stages from `v` (only the stages the K/V loop uses: the fill
+// runs before any load is issued).  Every thread of the CTA takes part, with
+// 16-byte stores.
+template <class T>
+__device__ __forceinline__ void fill_ones(unsigned char* smem, uint32_t ones, uint32_t v, int tiles) {
+  const uint4 one = make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);
+  if constexpr (T::kOnesInV) {
+    for (int t = 0; t < tiles; ++t) {
+      uint4* w = reinterpret_cast<uint4*>(smem + v + t * T::kVStageBytes + T::kTileBytes);
+      for (int i = threadIdx.x; i < T::kTileBytes / 16; i += T::kThreads) w[i] = one;
+    }
+  } else {
+    uint4* w = reinterpret_cast<uint4*>(smem + ones);
+    for (int i = threadIdx.x; i < T::kOnesBytes / 16; i += T::kThreads) w[i] = one;
+  }
+}
+
+// O += P V and l += P 1 for one tile of keys: V (at `v`, its ones beside it
+// with kOnesInV) is an MN-major B operand (D contiguous, wgmma's transpose
+// bit).  With kOnesInV the row sums land in o's last 8 columns.
+template <class T, int BK = T::kKeys>
+__device__ __forceinline__ void pv_product(float (&o)[T::kAccN / 2], float (&l)[4], const uint32_t (&p)[BK / 16][4],
+                                           uint32_t v, uint32_t ones) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    wgmma_rs<T::kAccN>(o, p[kk], T::mn_major(v, BK, kk));
+    if constexpr (!T::kOnesInV) wgmma_rs<8>(l, p[kk], make_desc(ones, 128, 256, 0));
+  }
+}
+
+// The epilogue of one Q tile: O / l in bf16 and lse = m ln2 + ln l into
+// batch b's rows (every column of the denominator's accumulator holds the row
+// sum), rows past N not stored.  row_a: this thread's first row.
+template <class T, int D>
+__device__ __forceinline__ void store_tile(const float (&o_acc)[T::kAccN / 2], const float (&l_acc)[4], float m0,
+                                           float m1, __nv_bfloat16* o, float* lse, int b, int N, int row_a, int t4) {
+  const float l0 = T::kOnesInV ? o_acc[D / 2] : l_acc[0], l1 = T::kOnesInV ? o_acc[D / 2 + 2] : l_acc[2];
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+  const int row_b = row_a + 8;
+  store_rows_bf16<D>(reinterpret_cast<const float(&)[D / 2]>(o_acc), o + (size_t)b * N * D, row_a, N, inv0, inv1,
+                     t4);
+  if (t4 == 0) {
+    if (row_a < N) lse[(size_t)b * N + row_a] = m0 * kLn2 + logf(fmaxf(l0, 1e-37f));
+    if (row_b < N) lse[(size_t)b * N + row_b] = m1 * kLn2 + logf(fmaxf(l1, 1e-37f));
   }
 }
 
@@ -229,7 +343,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
   const uint32_t q_s = base;
   const uint32_t k_s = q_s + T::kQBytes;
   const uint32_t v_s = k_s + S * T::kTileBytes;
-  const uint32_t ones_s = v_s + S * T::kTileBytes;
+  const uint32_t ones_s = v_s + S * T::kVStageBytes;
   const uint32_t q_full = ones_s + T::kOnesBytes;  // then the K/V ring's barriers
   const KvRing<S> ring{q_full};
 
@@ -237,10 +351,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
   const int q0 = blockIdx.x * T::kRowsQ;
   const int n_tiles = (M + BK - 1) / BK;
 
-  {  // a tile of bf16 ones, the B operand of the denominator's product
-    uint32_t* ones = reinterpret_cast<uint32_t*>(smem + (ones_s - base));
-    for (int i = threadIdx.x; i < T::kOnesBytes / 4; i += T::kThreads) ones[i] = 0x3F803F80u;
-  }
+  fill_ones<T>(smem, ones_s - base, v_s - base, n_tiles < S ? n_tiles : S);
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     ring.init(4 * T::kConsumers);
@@ -261,7 +372,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
       for (int x = 0; x < T::kBoxes; ++x) {
         tma_load_3d(q_s + x * T::kRowsQ * T::kRowBytes, &tq, q_full, x * T::kBox, q0, b);
       }
-      ring.template produce<T>(k_s, v_s, &tk, &tv, n_tiles, b);
+      ring.template produce<T>(k_s, v_s, &tk, &tv, n_tiles, b, T::kVStageBytes);
     }
   } else {
     // ---- consumer warpgroups: 64 Q rows each ----
@@ -280,19 +391,15 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
                      kk > 0);
       }
     };
-    float o_acc[D / 2];
+    float o_acc[T::kAccN / 2];
     float l_acc[4];
     // O += P V and l += P 1: V is MN-major (D contiguous).
     auto pv_issue = [&](const uint32_t (&p)[BK / 16][4], int st) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma_rs<D>(o_acc, p[kk], T::mn_major(v_s + st * T::kTileBytes, BK, kk));
-        wgmma_rs<8>(l_acc, p[kk], make_desc(ones_s, 128, 256, 0));
-      }
+      pv_product<T>(o_acc, l_acc, p, v_s + st * T::kVStageBytes, ones_s);
     };
 
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    for (int i = 0; i < T::kAccN / 2; ++i) o_acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) l_acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, a0, a1;
@@ -301,19 +408,8 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
 
     float s[BK / 2];
     uint32_t p[BK / 16][4];
-    // Scale O and l by the factor of the latest softmax (before P V adds the tile it belongs to).
-    auto rescale = [&]() {
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o_acc[4 * j] *= a0;
-        o_acc[4 * j + 1] *= a0;
-        o_acc[4 * j + 2] *= a1;
-        o_acc[4 * j + 3] *= a1;
-      }
-      l_acc[0] *= a0;
-      l_acc[1] *= a0;
-      l_acc[2] *= a1;
-      l_acc[3] *= a1;
+    auto softmax = [&](float (&x)[BK / 2], bool mask) {
+      softmax_tile<BK>(x, m0, m1, a0, a1, scale_log2, mask, last_valid, t4);
     };
     mbar_wait(q_full, 0);
 
@@ -329,7 +425,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
       wgmma_wait<0>();
       fence_regs(s);
       if (lane == 0) mbar_arrive(ring.k_empty(0));
-      softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && n_tiles == 1, last_valid, t4);
+      softmax(s, ragged && n_tiles == 1);
       to_a_frags<BK>(s, p);
 
       // Tile t: issue S(t), then O += P(t-1) V(t-1); the softmax of S(t) runs
@@ -343,7 +439,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         wgmma_fence();
         qk_issue(s, stage(t));
         wgmma_commit();
-        rescale();
+        rescale<T>(o_acc, l_acc, a0, a1);
         mbar_wait(ring.v_full(stage(t - 1)), parity(t - 1));
         fence_regs(o_acc);
         fence_regs(l_acc);
@@ -355,7 +451,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         wgmma_wait<1>();  // S of tile t is ready; P V of tile t - 1 may still run
         fence_regs(s);
         if (lane == 0) mbar_arrive(ring.k_empty(stage(t)));
-        softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, ragged && t == n_tiles - 1, last_valid, t4);
+        softmax(s, ragged && t == n_tiles - 1);
         wgmma_wait<0>();
         fence_regs(o_acc);
         fence_regs(l_acc);
@@ -386,7 +482,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         wgmma_wait<1>();
         fence_regs(s);
         if (lane == 0) mbar_arrive(ring.k_empty(0));
-        softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, false, last_valid, t4);
+        softmax(s, false);
         to_a_frags<BK>(s, p);
 
         // Tile t, its S already issued into cur: issue O += P(t-1) V(t-1)
@@ -395,7 +491,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
         // on the last tile only and a literal at every call, so each
         // inlined step is straight-line code.
         auto step = [&](int t, float (&cur)[BK / 2], float (&nxt)[BK / 2], bool ahead) {
-          rescale();
+          rescale<T>(o_acc, l_acc, a0, a1);
           mbar_wait(ring.v_full(stage(t - 1)), parity(t - 1));
           if (ahead) mbar_wait(ring.k_full(stage(t + 1)), parity(t + 1));
           if (T::kPingPong && !(wg == 0 && t == 1)) named_bar_sync(1 + wg, 256);
@@ -418,7 +514,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
           }
           fence_regs(cur);
           if (lane == 0) mbar_arrive(ring.k_empty(stage(t)));
-          softmax_tile<BK>(cur, m0, m1, a0, a1, scale_log2, ragged && !ahead, last_valid, t4);
+          softmax(cur, ragged && !ahead);
           if (ahead) {  // P(t-1) V(t-1) has retired
             wgmma_wait<1>();
           } else {
@@ -445,7 +541,7 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     } else {
       one_buffer();
     }
-    rescale();
+    rescale<T>(o_acc, l_acc, a0, a1);
     mbar_wait(ring.v_full(stage(n_tiles - 1)), parity(n_tiles - 1));
     fence_regs(o_acc);
     fence_regs(l_acc);
@@ -457,16 +553,181 @@ __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
     fence_regs(o_acc);
     fence_regs(l_acc);
 
-    // Epilogue: every column of the n8 accumulator holds the row sum.
-    const float l0 = l_acc[0], l1 = l_acc[2];
-    const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
-    const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
-    const int row_a = q0 + wg * 64 + warp * 16 + g;
-    const int row_b = row_a + 8;
-    store_rows_bf16<D>(o_acc, o + (size_t)b * N * D, row_a, N, inv0, inv1, t4);
-    if (t4 == 0) {
-      if (row_a < N) lse[(size_t)b * N + row_a] = m0 * kLn2 + logf(fmaxf(l0, 1e-37f));
-      if (row_b < N) lse[(size_t)b * N + row_b] = m1 * kLn2 + logf(fmaxf(l1, 1e-37f));
+    store_tile<T, D>(o_acc, l_acc, m0, m1, o, lse, b, N, q0 + wg * 64 + warp * 16 + g, t4);
+  }
+}
+
+// The resident form of the bf16 kernel, for short K/V (M <= kResidentTiles
+// tiles of keys): a persistent grid of one CTA an SM walks the (batch, Q tile)
+// items in order, each CTA a contiguous run of them, so it
+// loads a batch's K and V once (all its tiles stay in shared memory) and
+// switches batch at most a few times.  Q tiles go through two slots, loaded
+// while the previous item runs; barriers and the ones are set up once a CTA.
+// An item is the tiled kernel's one-buffer loop with no ring waits.  Running
+// a CTA's items as one stream of tiles (the next item's first S issued before
+// this item's last P V and epilogue) was slower at 8x16384x256x32 (tried, not
+// kept as a sweep variant); CTAs of 64 Q rows, two an SM, were as fast at 256
+// keys and 5-39 % slower at 512 and 1024 (rows64; sweep).
+template <int D>
+__global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
+    flash_fwd_bf16_resident_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                                   float* __restrict__ lse, int N, int M, float scale_log2, int items) {
+  using T = Bf16Tiles<D>;
+  constexpr int BK = T::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int n_tiles = (M + BK - 1) / BK;
+  const int q_tiles = (N + T::kRowsQ - 1) / T::kRowsQ;
+  const uint32_t q_s = base;                          // Q slot x at q_s + x * kQBytes
+  const uint32_t k_s = q_s + 2 * T::kQBytes;          // K tile t at k_s + t * kTileBytes
+  const uint32_t v_s = k_s + n_tiles * T::kTileBytes;  // V tile t (and its ones) at v_s + t * kVStageBytes
+  const uint32_t ones_s = v_s + n_tiles * T::kVStageBytes;
+  const uint32_t bars = ones_s + T::kOnesBytes;
+  auto q_full = [&](int x) { return bars + 8 * x; };
+  auto q_empty = [&](int x) { return bars + 16 + 8 * x; };
+  const uint32_t kv_full = bars + 32, kv_empty = bars + 40;
+  // This CTA's items [i0, i1): item i is batch i / q_tiles, Q tile i % q_tiles.
+  const int i0 = (int)((long long)blockIdx.x * items / gridDim.x);
+  const int i1 = (int)((long long)(blockIdx.x + 1) * items / gridDim.x);
+
+  fill_ones<T>(smem, ones_s - base, v_s - base, n_tiles);
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(q_full(x), 1);
+      mbar_init(q_empty(x), 4 * T::kConsumers);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 4 * T::kConsumers);
+    fence_barrier_init();
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      int prev_b = -1;
+      uint32_t batches = 0;
+      for (int i = i0, j = 0; i < i1; ++i, ++j) {
+        const int b = i / q_tiles, x = j & 1;
+        mbar_wait(q_empty(x), ((j >> 1) & 1) ^ 1);  // item j - 2's scores have retired
+        mbar_arrive_expect_tx(q_full(x), T::kQBytes);
+#pragma unroll
+        for (int y = 0; y < T::kBoxes; ++y) {
+          tma_load_3d(q_s + x * T::kQBytes + y * T::kRowsQ * T::kRowBytes, &tq, q_full(x), y * T::kBox,
+                      (i % q_tiles) * T::kRowsQ, b);
+        }
+        if (b != prev_b) {  // the consumers are done with the previous batch's K and V
+          mbar_wait(kv_empty, (batches & 1) ^ 1);
+          mbar_arrive_expect_tx(kv_full, 2 * n_tiles * T::kTileBytes);
+          for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll
+            for (int y = 0; y < T::kBoxes; ++y) {
+              tma_load_3d(k_s + t * T::kTileBytes + y * BK * T::kRowBytes, &tk, kv_full, y * T::kBox, t * BK, b);
+              tma_load_3d(v_s + t * T::kVStageBytes + y * BK * T::kRowBytes, &tv, kv_full, y * T::kBox, t * BK, b);
+            }
+          }
+          ++batches;
+          prev_b = b;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 Q rows of each item each ----
+    setmaxnreg_inc<T::kConsumerRegs>();
+    const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0) - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool ragged = M % BK != 0;
+    const int last_valid = M - (n_tiles - 1) * BK;
+
+    float o_acc[T::kAccN / 2], l_acc[4], s[BK / 2];
+    uint32_t p[BK / 16][4];
+    float m0, m1, a0, a1;
+    auto qk_issue = [&](uint32_t q, int t) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BK>(s, T::k_major(q, T::kRowsQ, wg * 64, kk), T::k_major(k_s + t * T::kTileBytes, BK, 0, kk),
+                     kk > 0);
+      }
+    };
+    auto pv_issue = [&](int t) { pv_product<T>(o_acc, l_acc, p, v_s + t * T::kVStageBytes, ones_s); };
+    auto softmax = [&](bool mask) { softmax_tile<BK>(s, m0, m1, a0, a1, scale_log2, mask, last_valid, t4); };
+
+    int prev_b = -1;
+    uint32_t batches = 0;
+    for (int i = i0, j = 0; i < i1; ++i, ++j) {
+      const int b = i / q_tiles, x = j & 1;
+      if (b != prev_b) {
+        mbar_wait(kv_full, batches & 1);
+        ++batches;
+        prev_b = b;
+      }
+      mbar_wait(q_full(x), (j >> 1) & 1);
+      const uint32_t q = q_s + x * T::kQBytes;
+#pragma unroll
+      for (int e = 0; e < T::kAccN / 2; ++e) o_acc[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l_acc[e] = 0.f;
+      fence_regs(o_acc);
+      fence_regs(l_acc);
+      m0 = m1 = -INFINITY;
+
+      // Tile 0, then tile t: issue S(t), then O += P(t-1) V(t-1); the
+      // softmax of S(t) runs while that product does.  The Q slot is released
+      // once the last S has retired.
+      fence_regs(s);
+      wgmma_fence();
+      qk_issue(q, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (n_tiles == 1 && lane == 0) mbar_arrive(q_empty(x));
+      softmax(ragged && n_tiles == 1);
+      to_a_frags<BK>(s, p);
+      for (int t = 1; t < n_tiles; ++t) {
+        fence_regs(s);
+        wgmma_fence();
+        qk_issue(q, t);
+        wgmma_commit();
+        rescale<T>(o_acc, l_acc, a0, a1);
+        fence_regs(o_acc);
+        fence_regs(l_acc);
+        fence_regs(p);
+        wgmma_fence();
+        pv_issue(t - 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        if (t == n_tiles - 1 && lane == 0) mbar_arrive(q_empty(x));
+        softmax(ragged && t == n_tiles - 1);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(l_acc);
+        fence_regs(p);
+        to_a_frags<BK>(s, p);
+      }
+      rescale<T>(o_acc, l_acc, a0, a1);
+      fence_regs(o_acc);
+      fence_regs(l_acc);
+      fence_regs(p);
+      wgmma_fence();
+      pv_issue(n_tiles - 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      fence_regs(l_acc);
+      // The next item is another batch: its K and V may replace these.
+      if (i + 1 < i1 && (i + 1) / q_tiles != b && lane == 0) mbar_arrive(kv_empty);
+      store_tile<T, D>(o_acc, l_acc, m0, m1, o, lse, b, N, (i % q_tiles) * T::kRowsQ + wg * 64 + warp * 16 + g, t4);
     }
   }
 }
@@ -745,15 +1006,48 @@ __global__ void __launch_bounds__(F32Tiles<D>::kThreads, 1)
   }
 }
 
+// The forms of the bf16 kernel (the C interface's `form`).
+enum Form { kTiled = 0, kResident = 1 };
+
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                        int N, int M, float scale_log2, cudaStream_t stream) {
+                        int N, int M, float scale_log2, int form, cudaStream_t stream) {
   using T = Bf16Tiles<D>;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, B, N, D, T::kBox, T::kRowsQ) || !encode_map(&tk, k, B, M, D, T::kBox, T::kKeys) ||
       !encode_map(&tv, v, B, M, D, T::kBox, T::kKeys)) {
     return cudaErrorInvalidValue;
   }
+  if (form == kResident) {
+    if constexpr (T::kResidentTiles == 0) {
+      return cudaErrorInvalidValue;
+    } else {
+      const int tiles = (M + T::kKeys - 1) / T::kKeys;
+      const long long items = (long long)B * ((N + T::kRowsQ - 1) / T::kRowsQ);
+      if (tiles > T::kResidentTiles || items > (1 << 30)) return cudaErrorInvalidValue;
+      const int smem = T::resident_smem(tiles);
+      static const cudaError_t err =
+          allow_smem(flash_fwd_bf16_resident_kernel<D>, T::resident_smem(T::kResidentTiles));  // once per kernel
+      if (err != cudaSuccess) return err;
+      // One CTA an SM, at most one an item.
+      const int sms = sm_count();
+      if (sms <= 0) return cudaErrorInvalidDevice;
+      const int grid = items < sms ? (int)items : sms;
+      flash_fwd_bf16_resident_kernel<D><<<grid, T::kThreads, smem, stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, N, M, scale_log2, (int)items);
+      return cudaGetLastError();
+    }
+  }
+  if (form != kTiled) return cudaErrorInvalidValue;
   const dim3 grid((N + T::kRowsQ - 1) / T::kRowsQ, B);
   static const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmemBytes);  // once per kernel
   if (err != cudaSuccess) return err;
@@ -800,11 +1094,13 @@ cudaError_t launch_f32(const void* const* parts, void* o, float* lse, int B, int
 // 64 or 128, and for fp32 also 40; the bf16 kernel takes scale > 0 only.  parts: for fp32, a host
 // array of the device pointers of enum Part (made by
 // flash_attention.py::tf32_fwd_parts, each contiguous and 16-byte aligned; the
-// kernel reads these, not q, k, v); null for bf16.
+// kernel reads these, not q, k, v); null for bf16.  form: enum Form, the bf16
+// kernel's (flash_attention.py::fwd_form chooses it; kResident takes D = 32
+// and at most Bf16Tiles<32>::kResidentTiles tiles of keys); 0 for fp32.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int N, int M, int D, int is_bf16,
-                                    float scale, const void* const* parts, void* stream) {
+                                    float scale, const void* const* parts, int form, void* stream) {
   if (B <= 0 || N <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   const float sl2 = scale * kLog2e;
   float* l = static_cast<float*>(lse);
@@ -812,11 +1108,12 @@ extern "C" int mrisr_flash_attn_fwd(const void* q, const void* k, const void* v,
   if (is_bf16) {
     if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
     switch (D) {
-      case 32: return (int)launch_bf16<32>(q, k, v, o, l, B, N, M, sl2, st);
-      case 64: return (int)launch_bf16<64>(q, k, v, o, l, B, N, M, sl2, st);
-      case 128: return (int)launch_bf16<128>(q, k, v, o, l, B, N, M, sl2, st);
+      case 32: return (int)launch_bf16<32>(q, k, v, o, l, B, N, M, sl2, form, st);
+      case 64: return (int)launch_bf16<64>(q, k, v, o, l, B, N, M, sl2, form, st);
+      case 128: return (int)launch_bf16<128>(q, k, v, o, l, B, N, M, sl2, form, st);
     }
   } else {
+    if (form != kTiled) return (int)cudaErrorInvalidValue;
     switch (D) {
       case 32: return (int)launch_f32<32>(parts, o, l, B, N, M, sl2, st);
       case 40: return (int)launch_f32<40>(parts, o, l, B, N, M, sl2, st);

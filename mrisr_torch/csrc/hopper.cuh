@@ -245,6 +245,18 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 40] += A[64 x 16] B[16 x 40]: A in registers (bf16 pairs), B MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B MN-major (transposed) in shared memory.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -254,6 +266,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 72] += A[64 x 16] B[16 x 72]: A in registers (bf16 pairs), B MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -285,7 +310,9 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
   if constexpr (N == 8) wgmma_rs_n8(d, a, desc_b);
   if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b);
+  if constexpr (N == 40) wgmma_rs_n40(d, a, desc_b);
   if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
+  if constexpr (N == 72) wgmma_rs_n72(d, a, desc_b);
   if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
 }
 
@@ -600,11 +627,13 @@ struct KvRing {
   }
 
   // The producer (one thread): K and V tile t (T::kKeys rows) into stage
-  // t % S of the rings at k_s and v_s (T::kTileBytes each) once the
-  // consumers have released it.
+  // t % S of the rings at k_s and v_s (T::kTileBytes each; V stages
+  // v_stage bytes apart, 0 for T::kTileBytes) once the consumers have
+  // released it.
   template <class T>
   __device__ void produce(uint32_t k_s, uint32_t v_s, const CUtensorMap* tk, const CUtensorMap* tv, int n_tiles,
-                          int b) const {
+                          int b, int v_stage = 0) const {
+    if (v_stage == 0) v_stage = T::kTileBytes;
     constexpr int BK = T::kKeys;
     int st = 0;
     uint32_t phase = 0;
@@ -619,7 +648,7 @@ struct KvRing {
       mbar_arrive_expect_tx(v_full(st), T::kTileBytes);
 #pragma unroll
       for (int x = 0; x < T::kBoxes; ++x) {
-        tma_load_3d(v_s + st * T::kTileBytes + x * BK * T::kRowBytes, tv, v_full(st), x * T::kBox, t * BK, b);
+        tma_load_3d(v_s + st * v_stage + x * BK * T::kRowBytes, tv, v_full(st), x * T::kBox, t * BK, b);
       }
       if (++st == S) {
         st = 0;

@@ -17,7 +17,10 @@ described in its source.
 
 On a CPU tensor each runs its plain version (``flash_attention_plain``,
 ``flash_attention_bwd_plain``); on a CUDA tensor it launches its kernels
-(bf16 or float32; the bf16 forward takes scale > 0) or raises.  The head
+(bf16 or float32; the bf16 forward takes scale > 0) or raises.  The bf16
+forward has two forms, one launch either way: ``fwd_form`` picks the
+resident one (a persistent grid holding each batch's K and V in shared
+memory) for short K/V and the tiled one otherwise.  The head
 widths each kernel takes (``KERNEL_HEAD_DIMS``): D in {32, 64, 128} in bf16,
 whose k-step is 16 columns; D in {32, 40, 64, 128} in float32 (tf32's k-step
 is 8 columns, so SD1.5's 40-wide heads take no pad in the forward, dQ or
@@ -192,7 +195,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {  # library -> {C function: argument types}
     "flash_attn_fwd": {
-        "mrisr_flash_attn_fwd": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR, _PTR],
+        "mrisr_flash_attn_fwd": [_PTR] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR, _INT, _PTR],
     },
     "flash_attn_bwd": {
         "mrisr_flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [ctypes.c_float, _PTR, _PTR],
@@ -246,9 +249,25 @@ def _check_tensors(batch: int, **tensors: torch.Tensor) -> None:
             raise ValueError(f"flash kernel needs 16-byte aligned {name}")
 
 
+# The bf16 forward kernel's forms, in the order of the C interface's ``form``: ``tiled`` (a CTA a Q tile,
+# K and V streamed through a ring of tiles) and ``resident`` (a persistent CTA an SM walks Q tiles with its
+# batch's K and V held in shared memory).
+FWD_FORMS = ("tiled", "resident")
+# The longest K/V the resident form takes, per head width: 1024 keys at D=32, as many as the kernel holds
+# (``Bf16Tiles::kResidentTiles``), where it was faster than the tiled form on the H100
+# (``tools/flash_fwd_sweep.py``); the kernel has no resident form at D=64 and 128.
+RESIDENT_MAX_KEYS = {32: 1024}
+
+
+def fwd_form(m: int, d: int, dtype: torch.dtype) -> str:
+    """The form of the forward kernel for ``m`` keys at the kernel's head width ``d``: ``resident`` for bf16
+    with up to ``RESIDENT_MAX_KEYS[d]`` keys, else ``tiled``."""
+    return "resident" if dtype == torch.bfloat16 and m <= RESIDENT_MAX_KEYS.get(d, 0) else "tiled"
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
-    """Launch the forward kernel on contiguous CUDA tensors (no counting); for float32 it first makes
-    the kernel's operands (:func:`tf32_fwd_parts`)."""
+    """Launch the forward kernel on contiguous CUDA tensors (no counting), in the form :func:`fwd_form`
+    gives; for float32 it first makes the kernel's operands (:func:`tf32_fwd_parts`)."""
     b, n, d = q.shape
     m = k.shape[1]
     _check_kernel_inputs(d, b, "fwd", q=q, k=k, v=v)
@@ -263,7 +282,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     with device_ctx(q.device):
         err = _kernel_fn("mrisr_flash_attn_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, n, m, d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, stream,
+            b, n, m, d, KERNEL_DTYPES[q.dtype], float(scale), ptrs, FWD_FORMS.index(fwd_form(m, d, q.dtype)),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
