@@ -12,9 +12,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 from mrisr_torch.device import resolve_device
+from mrisr_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
@@ -51,13 +53,16 @@ def build_libraries(names: tuple[str, ...], device: str = "cuda") -> None:
 
     One ``nvcc`` process per source, started together.  The ptxas report
     (registers, shared memory, spills) is kept beside each library as
-    ``<name>.log``.
+    ``<name>.log``.  The host seconds a build takes are counted as
+    ``build.nvcc_s`` (``utils/profiling.py``), so a capture that triggers the
+    first build of a library can leave them out of its own seconds.
     """
     resolve_device(device)
     out_dir = build_dir()
     todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
     if not todo:
         return
+    t0 = time.perf_counter()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in todo:
@@ -73,6 +78,7 @@ def build_libraries(names: tuple[str, ...], device: str = "cuda") -> None:
             failed.append(f"nvcc failed for {name}.cu:\n{stderr[-4000:]}")
         else:
             os.replace(tmp, out_dir / f"lib{name}.so")
+    profiling.count("build.nvcc_s", time.perf_counter() - t0)
     if failed:
         raise RuntimeError("\n".join(failed))
 

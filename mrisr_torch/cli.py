@@ -40,7 +40,11 @@ algorithms may sum in another order from run to run).
 Each training command ends by logging its throughput to ``metrics.jsonl``:
 steps per second (of the whole run, and of the loop after its first step
 without validation), the loader thread's time to make a batch, the time
-the loop waited for one, and (on the card) the device time of a step.
+the loop waited for one and how often it found none ready, the step's graph
+captures and replays, and (on the card) the device time of a step and a
+graphed step's forward, backward and update in its last replay
+(``stage_ms_*``).  ``sr-volume`` prints one line of its chain's stages in
+the last replay (device ms) and its captures and replays.
 """
 from __future__ import annotations
 
@@ -315,24 +319,22 @@ def _to_device(x, device):
 
 class _Throughput:
     """Steps per second (of the whole run, and of the loop after its first step with validation left out),
-    the loader thread's time to make a batch, the loop's wait for one, and (on a card) each step's device
-    time."""
+    and from the program's counters over the loop (``utils/profiling.py``): the loader thread's time to make
+    a batch, the loop's wait for one, the waits that found no batch ready, the step's graph captures and
+    replays, and (on a card) each step's device time and a graphed step's stages in its last replay."""
 
     def __init__(self, device):
-        self.device, self.t0, self.wait, self.steps, self.events = device, time.perf_counter(), 0.0, 0, []
+        from mrisr_torch.utils import profiling
+
+        self.device, self.t0, self.steps, self.events = device, time.perf_counter(), 0, []
         self.first_end, self.excluded = None, 0.0
+        self.start = profiling.counters()
 
     def _sync(self):
         import torch
 
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    def next_batch(self, batches):
-        t0 = time.perf_counter()
-        batch = next(batches)
-        self.wait += time.perf_counter() - t0
-        return batch
 
     def timed(self, run):
         import torch
@@ -360,17 +362,26 @@ class _Throughput:
         self.excluded += time.perf_counter() - t0
         return out
 
-    def record(self, loader) -> dict:
+    def record(self) -> dict:
+        from mrisr_torch.utils import profiling
+
         self._sync()
         end = time.perf_counter()
+        now = profiling.counters()
+        since = lambda k: now.get(k, 0) - self.start.get(k, 0)  # noqa: E731
         loop = end - self.first_end - self.excluded if self.first_end is not None else 0.0
         rec = {"steps": self.steps, "steps_per_s": self.steps / (end - self.t0),
                "loop_steps_per_s_after_first": (self.steps - 1) / loop if loop > 0 else 0.0,
-               "data_make_ms_per_batch": 1e3 * loader.make_seconds / max(loader.made, 1),
-               "data_wait_ms_per_batch": 1e3 * self.wait / max(self.steps, 1)}
+               "data_make_ms_per_batch": 1e3 * since("loader.make_s") / max(since("loader.made"), 1),
+               "data_wait_ms_per_batch": 1e3 * since("loader.wait_s") / max(since("loader.waits"), 1),
+               "loader_starved": since("loader.starved"),
+               "graph_captures": since("train_step.captures"), "graph_replays": since("train_step.replays")}
         if self.events:
             ms = [s.elapsed_time(e) for s, e in self.events]
             rec.update(step_device_ms=sum(ms) / len(ms), step_device_ms_after_first=sum(ms[1:]) / max(len(ms) - 1, 1))
+        if rec["graph_replays"]:
+            rec.update({f"stage_ms_{name.removeprefix('train.')}": ms
+                        for name, ms in profiling.stage_ms("train_step").items()})
         return rec
 
 
@@ -406,7 +417,7 @@ def _train_mnist(args):
     meter = _Throughput(device)
     batches = loader.batches(start=i)
     while i < args.steps:
-        batch = meter.next_batch(batches)
+        batch = next(batches)
         lr = _to_device(batch["lr"], device)
         lr_up = interpolate_like_torch(lr.permute(0, 3, 1, 2), (28, 28)).permute(0, 2, 3, 1)
         b = {"hr": _to_device(batch["hr"], device), "lr_up": lr_up,
@@ -417,7 +428,7 @@ def _train_mnist(args):
             logger.log(i, m)
         i += 1
     batches.close()
-    logger.log(i, meter.record(loader), prefix="run_")
+    logger.log(i, meter.record(), prefix="run_")
     mgr.save(i, state, force=True)
     mgr.close()
     print(f"done; checkpoint at {args.out}/ckpt")
@@ -463,7 +474,7 @@ def _train_cnn(args):
     meter = _Throughput(device)
     batches = loader.batches(start=i)
     while i < args.steps:
-        batch = meter.next_batch(batches)
+        batch = next(batches)
         b = {"lr": _to_device(batch["lr"], device), "hr": _to_device(batch["hr"], device)}
         state, m = meter.timed(lambda: step(state, b))
         if i % 20 == 0:
@@ -475,7 +486,7 @@ def _train_cnn(args):
                 logger.log(i, vm)
                 mgr.save(i, state)
     batches.close()
-    logger.log(i, meter.record(loader), prefix="run_")
+    logger.log(i, meter.record(), prefix="run_")
     mgr.save(i, state, force=True)
     mgr.close()
     return {"state": state, "step": step}
@@ -536,7 +547,7 @@ def _train_resdiff(args):
     meter = _Throughput(device)
     batches = loader.batches(start=i)
     while i < args.steps:
-        batch = meter.next_batch(batches)
+        batch = next(batches)
         lr, hr = _to_device(batch["lr"], device), _to_device(batch["hr"], device)
         with torch.no_grad():
             b, h, w, _ = lr.shape
@@ -554,7 +565,7 @@ def _train_resdiff(args):
             if vm:
                 logger.log(i, vm)
     batches.close()
-    logger.log(i, meter.record(loader), prefix="run_")
+    logger.log(i, meter.record(), prefix="run_")
     mgr.save(i, state, force=True)
     mgr.close()
     return {"state": state, "step": step, "pipeline": pipe}
@@ -647,7 +658,7 @@ def _train_latent(args):
     meter = _Throughput(device)
     batches = loader.batches(start=i)
     while i < args.steps:
-        batch = meter.next_batch(batches)
+        batch = next(batches)
         b = {"lr": _to_device(batch["lr"], device), "hr": _to_device(batch["hr"], device)}
         gen = step_generator(args.seed, i, device)
         state, m = meter.timed(lambda: step(state, b, gen))
@@ -657,7 +668,7 @@ def _train_latent(args):
             mgr.save(i, state)
         i += 1
     batches.close()
-    logger.log(i, meter.record(loader), prefix="run_")
+    logger.log(i, meter.record(), prefix="run_")
     mgr.save(i, state, force=True)
     mgr.close()
     return {"state": state, "step": step, "unet": unet, "vae": vae}
@@ -726,6 +737,7 @@ def _sr_volume(args):
     from mrisr_torch.pipelines.resdiff import ResDiffPipeline
     from mrisr_torch.pipelines.volume import super_resolve_volume
     from mrisr_torch.train.state import create_train_state, make_optimizer
+    from mrisr_torch.utils import profiling
     from mrisr_torch.utils.checkpoint import CheckpointManager
 
     device = _device(args)
@@ -739,9 +751,15 @@ def _sr_volume(args):
         mgr.close()
     pipe = ResDiffPipeline(cnn, unet, resdiff_schedule(1000), device=device)
     chains = args.chains or int(os.environ.get("MRISR_VOLUME_CHAINS", "1"))
+    start = profiling.counters()
     out = super_resolve_volume(pipe, args.input, args.output, resolution=args.resolution, batch_size=args.batch,
                                num_steps=args.ddim_steps, seed=args.seed, chain_group=chains)
     print(f"wrote {args.output} shape={out.shape}")
+    now = profiling.counters()
+    since = {k: now.get(k, 0) - start.get(k, 0) for k in ("resdiff.captures", "resdiff.replays")}
+    stages = profiling.stage_ms("resdiff.chain") if since["resdiff.replays"] else {}
+    print(" ".join(["chain", *(f"{name.removeprefix('resdiff.')}_ms={ms:.3f}" for name, ms in stages.items()),
+                    f"captures={since['resdiff.captures']}", f"replays={since['resdiff.replays']}"]))
     return {"pipeline": pipe, "volume": out}
 
 

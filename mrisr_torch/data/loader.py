@@ -12,7 +12,13 @@ the port runs on several devices.
 
 :meth:`Loader.batches` runs epoch after epoch from a global batch number, so
 a resumed training loop gets the batches the uninterrupted one would have.
-``make_seconds`` and ``made`` add up the thread's time to make batches.
+
+Counters (``utils/profiling.py``): the thread's gather and pin of a batch
+counts ``loader.made`` and ``loader.make_s``; the consumer's wait for one
+counts ``loader.waits``, ``loader.wait_s`` and ``loader.starved`` (the queue
+was empty when asked), so they say how close the thread is to setting the
+pace.  They are the process's counters: every loader of the process adds to
+them, so a reader takes their change over the loop it means.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from mrisr_torch.utils import profiling
 
 
 def _stack(samples: list[dict]) -> dict:
@@ -61,8 +69,6 @@ class Loader:
         self.prefetch = prefetch
         self.pin_memory = pin_memory
         self._epoch = 0
-        self.make_seconds = 0.0
-        self.made = 0
 
     def __len__(self):
         n = len(self.dataset)
@@ -126,8 +132,8 @@ class Loader:
                     item = fast(batch_idx) if fast is not None else _stack([self.dataset[int(i)] for i in batch_idx])
                     if self.pin_memory:
                         item = _pinned(item)
-                    self.make_seconds += time.perf_counter() - t0
-                    self.made += 1
+                    profiling.count("loader.made")
+                    profiling.count("loader.make_s", time.perf_counter() - t0)
                     if not put(item):
                         return
             except BaseException as e:  # surfaced on the consumer side
@@ -139,9 +145,15 @@ class Loader:
         t.start()
         try:
             while True:
+                starved = q.empty()
+                t0 = time.perf_counter()
                 item = q.get()
                 if item is sentinel:
                     break
+                profiling.count("loader.waits")
+                profiling.count("loader.wait_s", time.perf_counter() - t0)
+                if starved:
+                    profiling.count("loader.starved")
                 yield item
             if errors:
                 raise errors[0]

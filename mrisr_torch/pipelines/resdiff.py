@@ -17,6 +17,14 @@ record while the graph is captured; a replay calls no wrapper and counts
 nothing.  ``cuda_graph=False``, and every CPU pipeline, run
 the chain eagerly; so does the full-length ancestral chain
 (``num_steps=None``), whose per-step noise comes from the generator.
+
+Tracing (``utils/profiling.py``).  The chain's four stages are spans,
+``resdiff.stage1``, ``resdiff.static``, ``resdiff.steps`` (every UNet call)
+and ``resdiff.combine``: host ranges when eager, and in a captured chain
+event pairs that every replay records, read by
+``profiling.stage_ms("resdiff.chain")``.  A capture counts
+``resdiff.captures`` and ``resdiff.capture_s`` (``profiling.capture``); a
+replay is the span ``resdiff.replay`` and counts ``resdiff.replays``.
 """
 from __future__ import annotations
 
@@ -30,17 +38,19 @@ from mrisr_torch.diffusion.schedules import Schedule
 from mrisr_torch.models.resdiff_unet import ResDiffUNet
 from mrisr_torch.models.simple_cnn import SimpleCNN
 from mrisr_torch.pipelines.sampler import sr3_ancestral_sample
+from mrisr_torch.utils import profiling
 
 
 @dataclass
 class ChainGraph:
-    """A captured chain: its static input buffers and its static output.  The graph keeps its definition
-    (``keep_graph``), so a caller can read its nodes."""
+    """A captured chain: its static input buffers, its static output and its stage events.  The graph keeps
+    its definition (``keep_graph``), so a caller can read its nodes."""
 
     graph: torch.cuda.CUDAGraph
     lr: torch.Tensor
     x_T: torch.Tensor
     out: torch.Tensor
+    stages: profiling.Stages
 
 
 class ResDiffPipeline:
@@ -101,32 +111,39 @@ class ResDiffPipeline:
 
     def _chain(self, lr, x_T, num_steps, spacing, generator=None) -> torch.Tensor:
         """Stage 1, the chain-invariant features, the chain and ``cnn_sr + residual`` (``[B, H, W, 1]``)."""
-        cnn_sr = self.cnn(self._nchw(lr))  # [B, 1, H, W]
+        with profiling.span("resdiff.stage1"):
+            cnn_sr = self.cnn(self._nchw(lr))  # [B, 1, H, W]
         # Chain-invariant features (FFT split + DWT pyramid), once per chain.
-        static = self.unet.compute_static(cnn_sr)
+        with profiling.span("resdiff.static"):
+            static = self.unet.compute_static(cnn_sr)
 
         def eps_fn(x_t, gamma):
             return self.unet(torch.cat([cnn_sr, x_t], dim=1), gamma, static=static)
 
-        residual = sr3_ancestral_sample(self.sched, eps_fn, x_T, num_steps, spacing, generator=generator)
-        return self._nhwc(cnn_sr + residual)
+        with profiling.span("resdiff.steps"):
+            residual = sr3_ancestral_sample(self.sched, eps_fn, x_T, num_steps, spacing, generator=generator)
+        with profiling.span("resdiff.combine"):
+            return self._nhwc(cnn_sr + residual)
 
     def _capture(self, lr: torch.Tensor, x_T: torch.Tensor, num_steps: int, spacing: str) -> ChainGraph:
         """Warm the chain up eagerly once (cuFFT plans, cuDNN algorithms and the kernels' one-time set-up
-        must exist before capture), then capture it into a graph with its own memory pool."""
-        static_lr, static_x = lr.clone(), x_T.clone()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._chain(static_lr, static_x, num_steps, spacing)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        # thread_local: a training loop's data thread may pin host memory meanwhile (validation), which is no
-        # work of the capture.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = self._chain(static_lr, static_x, num_steps, spacing)
-        graph.instantiate()
-        return ChainGraph(graph, static_lr, static_x, out)
+        must exist before capture), then capture it into a graph with its own memory pool, its stages'
+        events with it."""
+        with profiling.capture("resdiff", self.device):
+            static_lr, static_x = lr.clone(), x_T.clone()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._chain(static_lr, static_x, num_steps, spacing)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            # thread_local: a training loop's data thread may pin host memory meanwhile (validation), which is
+            # no work of the capture.
+            with profiling.stages("resdiff.chain") as stages, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self._chain(static_lr, static_x, num_steps, spacing)
+            graph.instantiate()
+        return ChainGraph(graph, static_lr, static_x, out, stages)
 
     def _replay(self, lr: torch.Tensor, x_T: torch.Tensor, num_steps: int, spacing: str) -> torch.Tensor:
         key = (tuple(lr.shape), lr.dtype, num_steps, spacing)
@@ -135,7 +152,8 @@ class ResDiffPipeline:
             chain = self.graphs[key] = self._capture(lr, x_T, num_steps, spacing)
         chain.lr.copy_(lr)
         chain.x_T.copy_(x_T)
-        chain.graph.replay()
+        with profiling.span("resdiff.replay"):
+            profiling.replay("resdiff", chain.graph, chain.stages)
         return chain.out.clone()
 
     @torch.no_grad()

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from mrisr_torch.device import resolve_device
+from mrisr_torch.utils import profiling
 
 Params = dict[str, torch.Tensor]
 Schedule = Callable[[int | torch.Tensor], float | torch.Tensor]
@@ -407,8 +408,9 @@ class TrainState:
         graph captures; ``step`` is left to the caller)."""
         if self.tx.update_ is None:
             raise TypeError("this optimizer has no in-place update (Optimizer.update_)")
-        self.tx.update_(grads, self.opt_state, self.params)
-        self._ema_()
+        with profiling.span("train.update"):
+            self.tx.update_(grads, self.opt_state, self.params)
+            self._ema_()
 
     def apply_gradients_(self, grads: Params) -> None:
         """``update_tensors_`` and one more step."""

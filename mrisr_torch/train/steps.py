@@ -33,6 +33,15 @@ T)``, ``[B]``) and then ``eps``; ``draws`` may hold either.
 A parameter the loss does not reach (the MNIST UNet's time and class
 embeddings in regression mode) gets a zero gradient, as under ``jax.grad``,
 so the optimizer steps it as optax does.
+
+Tracing (``utils/profiling.py``).  A step's stages are spans:
+``train.forward`` (the loss), ``train.backward`` (its gradients) and
+``train.update`` (``TrainState.update_tensors_``: optimizer and EMA).  They
+run with the step's Python, in eager steps, a graphed step's warm-up and its
+capture, where they become event pairs that every replay records
+(``profiling.stage_ms("train_step")``).  A graphed step's capture counts
+``train_step.captures`` and ``train_step.capture_s``
+(``profiling.capture``), and a replay counts ``train_step.replays``.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from mrisr_torch.parallel.mesh import average_gradients
 from mrisr_torch.train.losses import image_compare_loss, l2
 from mrisr_torch.train.precision import Policy
 from mrisr_torch.train.state import Params, TrainState
+from mrisr_torch.utils import profiling
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -70,8 +80,10 @@ def step_generator(seed: int, step_id: int, device: str | torch.device) -> torch
 def _value_and_grad(loss_fn: Callable[[Params], torch.Tensor], params: Params):
     """Loss and its gradients with respect to the (float32) ``params``, by name."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss = loss_fn(leaves)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    with profiling.span("train.forward"):
+        loss = loss_fn(leaves)
+    with profiling.span("train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves.values(), grads)]
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -109,36 +121,40 @@ class GraphedStep:
         self.gens: list[torch.Generator] = []
         self.regen_offset = 0
         self.metrics: dict[str, torch.Tensor] = {}
+        self.stages: profiling.Stages | None = None
 
     def _capture(self, state: TrainState, inputs: dict, generator) -> None:
-        self.inputs = {k: v.clone() for k, v in inputs.items()}
-        self.gens = [torch.Generator(device=self.device) for _ in range(2 if self.remat else 1)] if self.random else []
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            warm = state.clone()
-            for _ in range(2):
-                gen = None
-                if self.random:
-                    gen = torch.Generator(device=self.device)
-                    gen.set_state(generator.get_state())
-                    start = gen.get_state()
-                    if self.remat:
-                        self.regen_offset = self.probe(start, gen, self.inputs)
-                        gen.set_state(start)
-                self.body(warm, self.inputs, gen, None)
-            del warm
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for gen in self.gens:
-            graph.register_generator_state(gen)
-        gen, regen = (self.gens + [None, None])[:2]
-        # thread_local: the loader's thread may pin host memory meanwhile, which is no work of the capture.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = self.body(state, self.inputs, gen, regen)
-        self.metrics = out if isinstance(out, dict) else {"loss": out}
-        graph.instantiate()
-        self.graph, self.state = graph, state
+        with profiling.capture("train_step", self.device):
+            self.inputs = {k: v.clone() for k, v in inputs.items()}
+            self.gens = ([torch.Generator(device=self.device) for _ in range(2 if self.remat else 1)]
+                         if self.random else [])
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                warm = state.clone()
+                for _ in range(2):
+                    gen = None
+                    if self.random:
+                        gen = torch.Generator(device=self.device)
+                        gen.set_state(generator.get_state())
+                        start = gen.get_state()
+                        if self.remat:
+                            self.regen_offset = self.probe(start, gen, self.inputs)
+                            gen.set_state(start)
+                    self.body(warm, self.inputs, gen, None)
+                del warm
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            for gen in self.gens:
+                graph.register_generator_state(gen)
+            gen, regen = (self.gens + [None, None])[:2]
+            # thread_local: the loader's thread may pin host memory meanwhile, which is no work of the capture.
+            with profiling.stages("train_step") as self.stages, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self.body(state, self.inputs, gen, regen)
+            self.metrics = out if isinstance(out, dict) else {"loss": out}
+            graph.instantiate()
+            self.graph, self.state = graph, state
 
     def __call__(self, state: TrainState, batch: dict, generator: torch.Generator | None = None, draws=None):
         if draws:
@@ -162,7 +178,7 @@ class GraphedStep:
             self.gens[0].set_state(start)
             if self.remat:
                 self.gens[1].set_state(_advanced(start, self.regen_offset))
-        self.graph.replay()
+        profiling.replay("train_step", self.graph, self.stages)
         if self.random:
             generator.set_state(self.gens[0].get_state())
         state.step += 1

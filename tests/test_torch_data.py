@@ -29,6 +29,7 @@ from mrisr_torch.data import loader as t_loader
 from mrisr_torch.data import slicecache as t_cache
 from mrisr_torch.data.nifti import write_nifti
 from mrisr_torch.ops import resize as t_resize
+from mrisr_torch.utils import profiling
 from test_torch_ops import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
@@ -251,10 +252,12 @@ def test_loader_batches_match_jax_and_resume_from_a_batch_number():
         assert [next(part)["x"][:, 0, 0, 0].tolist() for _ in range(13 - start)] == seq[start:]
         part.close()
     loader = t_loader.Loader(ds, batch_size=2, prefetch=1)
+    before = profiling.counters()
     it = iter(loader)
     next(it)
     it.close()
-    assert loader.made >= 1 and loader.make_seconds > 0
+    since = {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+    assert since["loader.made"] >= 1 and since["loader.make_s"] > 0 and since["loader.waits"] == 1
 
 
 def test_slice_caches_read_across_packages(tmp_path):
